@@ -1,0 +1,520 @@
+#!/usr/bin/env python3
+"""Chip check of the torch port (``src/repro_torch``) on one NVIDIA GPU.
+
+Builds the hand-written CUDA kernels from this checkout, drives the port's
+main path — ``solve()`` — at the size a sparse direct solver hands to its
+matching step, holds each kernel bit for bit against its plain torch
+version on the card, and prints what it measured:
+
+  1. build the kernels (``nvcc``, sm_90a); print the build time and the
+     card's name and power limit;
+  2. one instance, n = 1,048,576, avg_degree 16, kind "antigreedy",
+     seed 0: ``solve()`` with backend "auto" (must resolve to the
+     persistent kernel), "cuda" (the sweep kernel once per round) and
+     "torch", with identical states and iteration counts; the greedy /
+     MCM / AWAC split; the persistent kernel against its plain version;
+  3. a batch of 16 instances, n = 65,536, avg_degree 8, kinds cycling
+     through ``SUITE_KINDS``: every lane against its own single-instance
+     ``solve()``; both kernels against their plain versions on the batch's
+     MCM state, where every lane has candidates, with the median time and
+     the bound of each;
+  4. the sweep kernel alone against its plain version on a mid-AWAC state
+     of the phase-2 instance, with the median time of each; then one
+     ``solve()`` of that instance under ``torch.profiler``: the device's
+     busy share and the kernels that take its time;
+  5. n = 400: ``solve()`` against the exact optimum (ratio >= 2/3).
+
+Run from the root of a checkout on a machine with the card:
+
+    python3 chip_smoke.py
+
+It needs one card and no network, and exits non-zero without a CUDA device
+or outside a checkout. The line before the last holds the per-kernel
+record as JSON; the last line is {"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.core import (  # noqa: E402
+    MIN_GAIN,
+    MatchingProblem,
+    SolveOptions,
+    batch,
+    graph,
+    ref,
+    single,
+    solve,
+)
+from repro_torch.kernels import backend  # noqa: E402
+from repro_torch.kernels.cycle_gain.awac_sweep import (  # noqa: E402
+    awac_sweep_batched,
+    awac_sweep_plain,
+)
+from repro_torch.kernels.cycle_gain.persistent import (  # noqa: E402
+    awac_persistent_batched,
+    awac_persistent_plain,
+)
+from repro_torch.sparse.csr import (  # noqa: E402
+    batched_row_ptr_from_sorted,
+    row_ptr_from_sorted,
+)
+
+SINGLE = dict(n=1_048_576, avg_degree=16.0, kind="antigreedy", seed=0)
+BATCH = dict(b=16, n=65_536, avg_degree=8.0)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+
+
+def require(cond, message: str) -> None:
+    if not cond:
+        raise AssertionError(message)
+
+
+def sync():
+    torch.cuda.synchronize()
+
+
+def wall(fn):
+    """(result, seconds) of ``fn()`` ending in a device sync."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def event_ms(fn, reps: int) -> float:
+    """Median device time of ``fn()`` over ``reps`` runs, CUDA events."""
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def assert_identical(got, want, what: str) -> float:
+    """Every output equal (value, dtype, shape); returns the max abs error
+    over the float outputs (0.0 when identical)."""
+    err = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        require(a.dtype == b.dtype and a.shape == b.shape,
+                f"{what}: output {i} is {a.dtype} {tuple(a.shape)}, plain "
+                f"{b.dtype} {tuple(b.shape)}")
+        if a.dtype.is_floating_point:
+            fin = torch.isfinite(b)
+            same_inf = torch.equal(torch.isfinite(a), fin) and torch.equal(
+                a[~fin], b[~fin])
+            require(same_inf, f"{what}: output {i} differs in its infinities")
+            if fin.any():
+                err = max(err, float((a[fin] - b[fin]).abs().max()))
+        if not torch.equal(a, b):
+            bad = (a != b).nonzero()[:3].tolist()
+            raise AssertionError(f"{what}: output {i} differs at {bad}")
+    return err
+
+
+def bound_ms(bytes_moved: float, f32_ops: float) -> tuple[float, str]:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = f32_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sweep_bytes(b: int, cap: int, n: int) -> tuple[float, float]:
+    """Bytes and float32 operations of one sweep: each edge (row, col, val)
+    read once, row_ptr and the state read once, the four winner arrays
+    written once; three float operations per edge for its gain."""
+    return (b * (12 * cap + 4 * (n + 2) + 16 * (n + 1) + 16 * n),
+            3.0 * b * cap)
+
+
+def loop_bytes(cap: int, n: int, iters) -> tuple[float, float]:
+    """Bytes and float32 operations the AWAC loop must move and do for this
+    run's data: per round run by an instance, its edges, row_ptr and state
+    read once; the final state written once per instance."""
+    rounds = float(sum(int(i) for i in iters))
+    b = len(iters)
+    read = rounds * (12 * cap + 4 * (n + 2) + 16 * (n + 1))
+    return read + b * 16 * (n + 1), rounds * 3.0 * cap
+
+
+def same_results(a, b, what: str) -> None:
+    for k in ("mate_row", "mate_col", "awac_iters", "perfect"):
+        require(torch.equal(getattr(a, k), getattr(b, k)),
+                f"{what}: {k} differs")
+    require(torch.allclose(a.weight, b.weight, rtol=1e-6, atol=0),
+            f"{what}: weight differs beyond rtol 1e-6")
+
+
+def mcm_counted(row, col, val, n, st):
+    """``single.mcm`` from a greedy state, phase by phase, counting phases
+    and BFS layers and timing the BFS apart from the trace/flip."""
+    mr, mc = st.mate_row, st.mate_col
+    out = dict(phases=0, layers=0, bfs_s=0.0, flip_s=0.0)
+    go = True
+    while go and bool((mr[:n] == n).any()):
+        (pc, vis, go, layers), dt = wall(
+            lambda: single._mcm_bfs(row, col, val, n, mr, mc))
+        out["bfs_s"] += dt
+        (mr, mc), dt = wall(lambda: single.trace_and_flip(
+            pc, vis, go, layers, mr, mc, n))
+        out["flip_s"] += dt
+        out["phases"] += 1
+        out["layers"] += layers
+    return single.state_from_mates(row, col, val, n, mr, mc), out
+
+
+def phase_profile(log, p):
+    """Device busy share over one ``solve()`` and the kernels that take
+    its device time, from ``torch.profiler``."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, t = wall(lambda: solve(p))
+    # the rows of device kernels only: an operator's row repeats the
+    # device time of the kernels it launched
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+
+    busy_us = sum(dev_us(e) for e in rows)
+    require(busy_us > 0, "the profiler recorded no device time")
+    top = sorted(rows, key=dev_us, reverse=True)[:12]
+    print(f"[profile] solve() under the profiler: {t:.3f} s wall, device "
+          f"busy {busy_us / 1e6:.3f} s ({100 * busy_us / 1e6 / t:.1f}%), "
+          f"{sum(e.count for e in rows)} kernel launches")
+    for e in top:
+        print(f"[profile]   {dev_us(e) / 1e3:10.3f} ms  {e.count:7d} x  "
+              f"{e.key[:90]}")
+    log["profile"] = dict(wall_s=t, device_busy_s=busy_us / 1e6, top=[
+        dict(name=e.key, device_ms=dev_us(e) / 1e3, count=e.count)
+        for e in top])
+
+
+def phase_build(log):
+    t0 = time.perf_counter()
+    backend.library()
+    info = dict(backend.BUILD_INFO)
+    log["build_s"] = time.perf_counter() - t0
+    regs = [ln.strip() for ln in info.get("ptxas", "").splitlines()
+            if "registers" in ln]
+    print(f"[build] {log['build_s']:.1f} s, cached={info.get('cached')}: "
+          f"{info.get('library')}")
+    for ln in regs:
+        print(f"[build] ptxas: {ln}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
+    log["card"] = card
+
+
+def phase_single(log, kernels):
+    cfg = SINGLE
+    n = cfg["n"]
+    t0 = time.perf_counter()
+    g = graph.generate(n, avg_degree=cfg["avg_degree"], kind=cfg["kind"],
+                       seed=cfg["seed"])
+    gen_s = time.perf_counter() - t0
+    p = MatchingProblem.from_graph(g)
+    print(f"[single] n={n} nnz={g.nnz} cap={g.capacity} kind={cfg['kind']} "
+          f"generated in {gen_s:.1f} s")
+
+    # the main path, as a user calls it; the counts are read right after
+    backend.reset_launch_counts()
+    r_auto, t_auto = wall(lambda: solve(p))
+    k_auto = backend.launch_counts()
+    require(r_auto.execution.backend == "cuda_persistent",
+            f"auto resolved to {r_auto.execution.backend}")
+    require(r_auto.execution.ran_kernel is True, "auto ran no kernel")
+    require(k_auto["awac_persistent"] >= 1,
+            f"the persistent kernel was not launched: {k_auto}")
+    backend.reset_launch_counts()
+    r_cuda, t_cuda = wall(lambda: solve(p, SolveOptions(backend="cuda")))
+    k_cuda = backend.launch_counts()
+    require(k_cuda["awac_sweep"] >= 1,
+            f"the sweep kernel was not launched: {k_cuda}")
+    require(k_cuda["awac_sweep"] == int(r_cuda.awac_iters),
+            f"sweep launches {k_cuda} != rounds {int(r_cuda.awac_iters)}")
+    r_torch, t_torch = wall(lambda: solve(p, SolveOptions(backend="torch")))
+    same_results(r_cuda, r_auto, "single: cuda vs auto")
+    same_results(r_torch, r_auto, "single: torch vs auto")
+    require(bool(r_auto.perfect), "single: the matching is not perfect")
+    kernels["awac_persistent"]["launches"] = k_auto["awac_persistent"]
+    kernels["awac_sweep"]["launches"] = k_cuda["awac_sweep"]
+    iters = int(r_auto.awac_iters)
+    print(f"[single] solve(): auto {t_auto:.2f} s, cuda {t_cuda:.2f} s, "
+          f"torch {t_torch:.2f} s; {iters} AWAC rounds, weight "
+          f"{float(r_auto.weight)!r}; launches auto {k_auto}, cuda {k_cuda}")
+
+    # the phase split, engine by engine
+    row, col, val = p.row, p.col, p.val
+    st, t_greedy = wall(lambda: single.greedy_maximal(row, col, val, n))
+    (st, mcm_log), t_mcm = wall(lambda: mcm_counted(row, col, val, n, st))
+    t_awac = {}
+    for b in ("cuda_persistent", "cuda", "torch"):
+        (s, it), t_awac[b] = wall(lambda: single.awac(row, col, val, n, st,
+                                                      backend=b))
+        require(int(it) == iters and torch.equal(s.mate_row, r_auto.mate_row),
+                f"single: awac({b}) from the MCM state differs from solve()")
+    t_pre = t_auto - t_greedy - t_mcm - t_awac["cuda_persistent"]
+    print(f"[single] MCM: {mcm_log['phases']} phases, {mcm_log['layers']} BFS "
+          f"layers; BFS {mcm_log['bfs_s']:.3f} s, trace/flip "
+          f"{mcm_log['flip_s']:.3f} s")
+    print(f"[single] split: greedy {t_greedy:.3f} s, MCM {t_mcm:.3f} s, "
+          f"AWAC cuda_persistent {t_awac['cuda_persistent']:.3f} s / cuda "
+          f"{t_awac['cuda']:.3f} s / torch {t_awac['torch']:.3f} s; the rest "
+          f"of solve() (preflight on the host, setup) {t_pre:.3f} s")
+    log["single"] = dict(n=n, nnz=g.nnz, cap=g.capacity, iters=iters,
+                         solve_s=dict(auto=t_auto, cuda=t_cuda,
+                                      torch=t_torch),
+                         greedy_s=t_greedy, mcm_s=t_mcm, mcm=mcm_log,
+                         awac_s=t_awac,
+                         rest_s=t_pre)
+
+    # the persistent kernel against its plain version, from the MCM state
+    rp = row_ptr_from_sorted(row, n)[None]
+    ws = single._resolve_window_steps(row, n, None)
+    mg = torch.tensor(MIN_GAIN, dtype=torch.float32, device=row.device)
+    go = torch.ones(1, dtype=torch.bool, device=row.device)
+    args = (row[None], col[None], val[None], rp, *(x[None] for x in st))
+    got = awac_persistent_batched(*args, mg, go, n=n, window_steps=ws,
+                                  max_iter=1000)
+    sync()
+    want = awac_persistent_plain(*args, mg, go, n=n, window_steps=ws,
+                                 max_iter=1000)
+    err = assert_identical(got, want, "single: persistent kernel vs plain")
+    k2 = kernels["awac_persistent"]
+    k2["max_abs_err"] = err
+    k2["ms"] = event_ms(lambda: awac_persistent_batched(
+        *args, mg, go, n=n, window_steps=ws, max_iter=1000), 5)
+    k2["plain_ms"] = event_ms(lambda: awac_persistent_plain(
+        *args, mg, go, n=n, window_steps=ws, max_iter=1000), 3)
+    k2["bound_ms"], k2["bound_by"] = bound_ms(*loop_bytes(g.capacity, n,
+                                                          [iters]))
+    print(f"[single] persistent kernel {k2['ms']:.3f} ms, plain "
+          f"{k2['plain_ms']:.3f} ms, bound {k2['bound_ms']:.3f} ms "
+          f"({k2['bound_by']}), {iters} rounds")
+    return p, st, args, ws, mg, iters
+
+
+def phase_batch(log, kernels):
+    cfg = BATCH
+    n = cfg["n"]
+    kinds = graph.SUITE_KINDS
+    gs = [graph.generate(n, avg_degree=cfg["avg_degree"],
+                         kind=kinds[i % len(kinds)], seed=i)
+          for i in range(cfg["b"])]
+    pb = MatchingProblem.stack(gs)
+    backend.reset_launch_counts()
+    rb, t_b = wall(lambda: solve(pb))
+    k_b = backend.launch_counts()
+    require(k_b["awac_persistent"] >= 1, f"batch: no kernel launch {k_b}")
+    rt, t_t = wall(lambda: solve(pb, SolveOptions(backend="torch")))
+    same_results(rt, rb, "batch: torch vs auto")
+    for i, g in enumerate(gs):
+        r1 = solve(MatchingProblem.from_graph(g))
+        for k in ("mate_row", "mate_col", "awac_iters", "perfect"):
+            require(torch.equal(getattr(r1, k), getattr(rb, k)[i]),
+                    f"batch lane {i}: {k} differs from its single solve")
+    # the persistent kernel against its plain version, from the MCM state
+    row, col, val = pb.row, pb.col, pb.val
+    mr, mc = batch.greedy_maximal_batched(row, col, val, n)
+    mr, mc = batch.mcm_batched(row, col, val, n, mr, mc)
+    rp = batched_row_ptr_from_sorted(row, n)
+    ws = single._resolve_window_steps(row, n, None)
+    st = batch._state_from_mates_windowed(row, col, val, rp, n, mr, mc, ws)
+    mg = torch.tensor(MIN_GAIN, dtype=torch.float32, device=row.device)
+    go = torch.ones(cfg["b"], dtype=torch.bool, device=row.device)
+    go[3] = False  # one lane gated off, as degrade_infeasible does
+    got = awac_persistent_batched(row, col, val, rp, *st, mg, go, n=n,
+                                  window_steps=ws, max_iter=1000)
+    sync()
+    want = awac_persistent_plain(row, col, val, rp, *st, mg, go, n=n,
+                                 window_steps=ws, max_iter=1000)
+    err2 = assert_identical(got, want, "batch: persistent kernel vs plain")
+    iters = rb.awac_iters.tolist()
+    print(f"[batch] B={cfg['b']} n={n}: solve() auto {t_b:.2f} s, torch "
+          f"{t_t:.2f} s; rounds {iters}; every lane equals its single "
+          f"solve; persistent kernel == plain (lane 3 gated off)")
+    log["batch"] = dict(b=cfg["b"], n=n, cap=pb.cap, iters=iters,
+                        solve_s=dict(auto=t_b, torch=t_t),
+                        loaded=phase_batch_kernels(kernels, row, col, val, rp,
+                                                   st, mg, n, ws, iters))
+    k2 = kernels["awac_persistent"]
+    k2["max_abs_err"] = max(k2["max_abs_err"], err2)
+
+
+def phase_batch_kernels(kernels, row, col, val, rp, st, mg, n, ws, iters):
+    """Both kernels against their plain versions, and timed, on the batch's
+    MCM state: every lane has candidates there and runs 1 to 4 rounds, so
+    the atomics and Step D carry real work."""
+    b, cap = row.shape
+    args = (row, col, val, rp, *st)
+    go = torch.ones(b, dtype=torch.bool, device=row.device)
+
+    def k1():
+        return awac_sweep_batched(*args, mg, n=n, window_steps=ws)
+
+    def p1():
+        return awac_sweep_plain(*args, mg, n=n, window_steps=ws)
+
+    def k2():
+        return awac_persistent_batched(*args, mg, go, n=n, window_steps=ws,
+                                       max_iter=1000)
+
+    def p2():
+        return awac_persistent_plain(*args, mg, go, n=n, window_steps=ws,
+                                     max_iter=1000)
+
+    got1 = k1()
+    sync()
+    err1 = assert_identical(got1, p1(), "batch: sweep kernel vs plain")
+    rooted = int(torch.isfinite(got1[0]).sum())
+    require(rooted > 0, "batch: the MCM state has no candidate")
+    got2 = k2()
+    sync()
+    err2 = assert_identical(got2, p2(), "batch: persistent kernel vs plain "
+                            "(every lane)")
+    loop_iters = got2[4].tolist()
+    require(loop_iters == iters,
+            f"batch: kernel rounds {loop_iters} != solve() rounds {iters}")
+    for name, err in (("awac_sweep", err1), ("awac_persistent", err2)):
+        kv = kernels[name]
+        kv["max_abs_err"] = max(kv.get("max_abs_err", 0.0), err)
+    out = dict(rooted=rooted, sweep_ms=event_ms(k1, 21),
+               sweep_plain_ms=event_ms(p1, 5), loop_ms=event_ms(k2, 5),
+               loop_plain_ms=event_ms(p2, 3), rounds=loop_iters)
+    out["sweep_bound_ms"], out["sweep_bound_by"] = bound_ms(
+        *sweep_bytes(b, cap, n))
+    out["loop_bound_ms"], out["loop_bound_by"] = bound_ms(
+        *loop_bytes(cap, n, loop_iters))
+    print(f"[batch] MCM state: {rooted} rooted columns over {b} lanes; sweep "
+          f"kernel {out['sweep_ms']:.3f} ms (median of 21), plain "
+          f"{out['sweep_plain_ms']:.3f} ms (median of 5), bound "
+          f"{out['sweep_bound_ms']:.4f} ms ({out['sweep_bound_by']}); "
+          f"persistent kernel {out['loop_ms']:.3f} ms (median of 5), plain "
+          f"{out['loop_plain_ms']:.3f} ms (median of 3), bound "
+          f"{out['loop_bound_ms']:.4f} ms ({out['loop_bound_by']}), "
+          f"{sum(loop_iters)} lane-rounds; both kernels == plain")
+    return out
+
+
+def phase_sweep(log, kernels, single_run):
+    """The sweep kernel on a state from the middle of the phase-2 AWAC run
+    (the MCM state itself when the run has fewer than three rounds: its
+    last round finds nothing, so only the rounds before it sweep real
+    candidates)."""
+    p, st, args, ws, mg, iters = single_run
+    n = p.n
+    rounds = (iters - 1) // 2
+    margs = args
+    if rounds > 0:
+        go = torch.ones(1, dtype=torch.bool, device=p.device)
+        mid = awac_persistent_batched(*args, mg, go, n=n, window_steps=ws,
+                                      max_iter=rounds)
+        margs = args[:4] + tuple(mid[:4])
+    got = awac_sweep_batched(*margs, mg, n=n, window_steps=ws)
+    sync()
+    want = awac_sweep_plain(*margs, mg, n=n, window_steps=ws)
+    k1 = kernels["awac_sweep"]
+    k1["max_abs_err"] = max(k1.get("max_abs_err", 0.0), assert_identical(
+        got, want, "sweep kernel vs plain"))
+    rooted = int(torch.isfinite(got[0]).sum())
+    require(rooted > 0, "the measured sweep has no candidate")
+    k1["ms"] = event_ms(lambda: awac_sweep_batched(*margs, mg, n=n,
+                                                   window_steps=ws), 21)
+    k1["plain_ms"] = event_ms(lambda: awac_sweep_plain(*margs, mg, n=n,
+                                                       window_steps=ws), 5)
+    k1["bound_ms"], k1["bound_by"] = bound_ms(*sweep_bytes(1, p.cap, n))
+    print(f"[sweep] state after {rounds} of {iters} rounds: {rooted} rooted "
+          f"columns; kernel {k1['ms']:.3f} ms (median of 21), plain "
+          f"{k1['plain_ms']:.3f} ms (median of 5), bound "
+          f"{k1['bound_ms']:.3f} ms ({k1['bound_by']})")
+    log["sweep"] = dict(after_rounds=rounds, rooted=rooted)
+
+
+def phase_quality(log):
+    g = graph.generate(400, avg_degree=6.0, kind="antigreedy", seed=0)
+    r = solve(MatchingProblem.from_graph(g))
+    dense = g.to_dense().astype(np.float32)
+    struct = g.structure_dense()
+    _, opt = ref.exact_mwpm(dense, struct)
+    mr = r.mate_row[:g.n].cpu().numpy()
+    ref.check_matching(struct, mr)
+    ratio = float(r.weight) / opt
+    require(bool(r.perfect) and ratio >= 2 / 3,
+            f"n=400: perfect={bool(r.perfect)}, ratio {ratio}")
+    print(f"[quality] n=400 antigreedy: perfect, {int(r.awac_iters)} rounds, "
+          f"weight {float(r.weight)!r} / optimum {opt!r} = {ratio!r}")
+    log["ratio_n400"] = ratio
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", type=pathlib.Path, default=None,
+                    help="also write the measurements to this JSON file")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = {
+        "awac_sweep": dict(
+            name="awac_sweep", route="cuda",
+            source="src/repro_torch/kernels/csrc/awac_sweep.cu",
+            replaces="src/repro/kernels/cycle_gain/awac_sweep.py:121",
+            library_ms=None),
+        "awac_persistent": dict(
+            name="awac_persistent", route="cuda",
+            source="src/repro_torch/kernels/csrc/awac_persistent.cu",
+            replaces="src/repro/kernels/cycle_gain/persistent.py:210",
+            library_ms=None),
+    }
+    log = {}
+    t0 = time.perf_counter()
+    phase_build(log)
+    single_run = phase_single(log, kernels)
+    phase_batch(log, kernels)
+    phase_sweep(log, kernels, single_run)
+    phase_profile(log, single_run[0])
+    phase_quality(log)
+    log["total_s"] = time.perf_counter() - t0
+    print(f"[done] {log['total_s']:.1f} s; card {log['card']}")
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps({"log": log, "kernels": kernels},
+                                       indent=1))
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: kv[k] for k in keys}
+                                  for kv in kernels.values()]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

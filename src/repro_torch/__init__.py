@@ -1,0 +1,10 @@
+"""repro_torch — the PyTorch and CUDA port of the AWPM matching system.
+
+It mirrors the sub-packages of ``repro`` (the JAX reference, which it does
+not import): ``core`` holds the engines and the ``solve()`` facade,
+``sparse`` the segment and search primitives, ``kernels`` the hand-written
+CUDA kernels of the AWAC loop with their plain torch versions.
+"""
+from repro_torch.core import MatchingProblem, MatchResult, SolveOptions, solve
+
+__all__ = ["MatchingProblem", "MatchResult", "SolveOptions", "solve"]

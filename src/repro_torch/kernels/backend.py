@@ -1,0 +1,148 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+The CUDA sources under ``kernels/csrc/`` are compiled at first use with
+``nvcc`` for ``sm_90a`` into one shared library with a plain C interface,
+loaded with ``ctypes``. The build goes into ``build/`` at the root of the
+checkout, in a directory named after a hash of the sources and flags, so a
+changed source is rebuilt and an unchanged one is loaded as it is. Each
+source compiles in its own ``nvcc`` process, all started together.
+
+Each kernel module keeps an integer launch counter beside its wrapper;
+``launch_counts`` and ``reset_launch_counts`` read and clear them all, so a
+run can show which kernels the main path went through.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import time
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build"
+SOURCES = ("awac_sweep.cu", "awac_persistent.cu")
+HEADERS = ("awac_common.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LIB_NAME = "librepro_torch_kernels.so"
+
+c_ptr = ctypes.c_void_p
+c_int = ctypes.c_int
+c_ll = ctypes.c_longlong
+c_float = ctypes.c_float
+
+#: argument types of each exported C function, in order
+SIGNATURES = {
+    "awac_sweep": [c_ptr] * 8 + [c_float, c_int, c_ll, c_int] + [c_ptr] * 6,
+    "awac_persistent": [c_ptr] * 9 + [c_float, c_int, c_int, c_ll, c_int]
+    + [c_ptr] * 9,
+}
+
+_LIB = None
+#: what the last build did: {"seconds", "library", "ptxas", "cached"}
+BUILD_INFO: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = pathlib.Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
+                       "CUDA toolkit's nvcc, on the machine with the card")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> pathlib.Path:
+    """Compile the sources (if this exact version is not built yet) and
+    return the path of the shared library."""
+    out_dir = BUILD_ROOT / f"kernels-{_digest()}"
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        BUILD_INFO.update(seconds=0.0, library=str(lib), cached=True)
+        return lib
+    nvcc = _nvcc()
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    tmp = pathlib.Path(tempfile.mkdtemp(dir=BUILD_ROOT))
+    try:
+        objs, procs = [], []
+        for name in SOURCES:
+            obj = tmp / (name + ".o")
+            objs.append(obj)
+            procs.append((name, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs = []
+        for name, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(f"== {name}\n{out}")
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {name}:\n{out}")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp / LIB_NAME),
+                               *map(str, objs)], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"linking the kernels failed:\n{link.stderr}")
+        (tmp / "ptxas.log").write_text("\n".join(logs))
+        try:
+            os.replace(tmp, out_dir)  # atomic; a concurrent build may win
+        except OSError:
+            if not lib.exists():
+                raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, library=str(lib),
+                      cached=False,
+                      ptxas=(out_dir / "ptxas.log").read_text())
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at the first call."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = c_int
+        _LIB = lib
+    return _LIB
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a kernel's C entry."""
+    if err != 0:
+        raise RuntimeError(
+            f"CUDA kernel {name} failed to launch: error {err} "
+            f"({torch.cuda.get_device_name()})")
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of each hand-written kernel since the last reset."""
+    from repro_torch.kernels.cycle_gain import awac_sweep, persistent
+
+    return {"awac_sweep": awac_sweep.launches,
+            "awac_persistent": persistent.launches}
+
+
+def reset_launch_counts() -> None:
+    from repro_torch.kernels.cycle_gain import awac_sweep, persistent
+
+    awac_sweep.launches = 0
+    persistent.launches = 0

@@ -1,0 +1,139 @@
+"""Segment-op primitives of the matching engines, on torch tensors.
+
+Padding convention: invalid entries carry ``segment_id == num_segments - 1``
+(the dump segment ``n`` of an ``n + 1``-segment reduction) or are masked to
+the reduction identity. Segment ids must lie in ``[0, num_segments)``.
+
+Every reduction is an order-free max or min (``scatter_reduce`` with
+``include_self=True`` onto an identity-filled tensor), so the results do
+not depend on the order in which duplicates are combined — on the CPU or
+on the card. Empty segments hold the identities of ``jax.ops.segment_*``:
+``-inf`` for a float max, ``INT32_MAX`` for an int32 min.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG = float("-inf")
+INT32_MAX = 2**31 - 1
+
+
+def _identity_fill(n: int, like: torch.Tensor, op: str) -> torch.Tensor:
+    if like.dtype.is_floating_point:
+        fill = NEG if op == "amax" else float("inf")
+    else:
+        info = torch.iinfo(like.dtype)
+        fill = info.min if op == "amax" else info.max
+    return torch.full((n,), fill, dtype=like.dtype, device=like.device)
+
+
+def segment_reduce(values, segment_ids, num_segments: int, op: str):
+    """``jax.ops.segment_max`` (``op="amax"``) / ``segment_min``
+    (``op="amin"``) over 1-D inputs."""
+    out = _identity_fill(num_segments, values, op)
+    return out.scatter_reduce(0, segment_ids.long(), values, op,
+                              include_self=True)
+
+
+def segment_min(values, segment_ids, num_segments: int):
+    return segment_reduce(values, segment_ids, num_segments, "amin")
+
+
+def segment_max_with_payload(values, payload, segment_ids, num_segments: int):
+    """Per-segment max of ``values`` and the smallest ``payload`` among the
+    entries attaining it (the deterministic tie-break every engine shares).
+
+    Two passes: a scatter-max of the values, then a scatter-min of the
+    payload over the entries that hit their segment's max. Returns
+    (seg_max [num_segments], seg_payload [num_segments] int32); segments
+    with no entries, or whose max is -inf, get (-inf, -1)."""
+    seg = segment_ids.long()
+    seg_max = segment_reduce(values, seg, num_segments, "amax")
+    hit = values == seg_max[seg]
+    cand = torch.where(hit, payload, INT32_MAX)
+    seg_payload = segment_reduce(cand, seg, num_segments, "amin")
+    seg_payload = torch.where(seg_max == NEG, -1, seg_payload)
+    seg_payload = torch.where(seg_payload == INT32_MAX, -1, seg_payload)
+    return seg_max, seg_payload
+
+
+def _flat_segments(segment_ids, num_segments: int):
+    """[B, m] per-instance segment ids -> flat ids over B * num_segments."""
+    b = segment_ids.shape[0]
+    offs = torch.arange(b, dtype=torch.int64,
+                        device=segment_ids.device)[:, None] * num_segments
+    return (segment_ids.long() + offs).reshape(-1)
+
+
+def batched_segment_max_with_payload(values, payload, segment_ids,
+                                     num_segments: int):
+    """Batched ``segment_max_with_payload``: inputs are [B, m] with
+    per-instance segments, reduced as ONE flat offset-segment reduction.
+    Payloads stay local, so each instance gets exactly the winner of its
+    own single-instance call. Returns ([B, num_segments], [B, num_segments])."""
+    b = values.shape[0]
+    seg_max, seg_payload = segment_max_with_payload(
+        values.reshape(-1), payload.reshape(-1),
+        _flat_segments(segment_ids, num_segments), b * num_segments)
+    return (seg_max.reshape(b, num_segments),
+            seg_payload.reshape(b, num_segments))
+
+
+def batched_segment_min(values, segment_ids, num_segments: int):
+    """Batched ``segment_min`` over per-instance segments. Returns
+    [B, num_segments]."""
+    b = values.shape[0]
+    out = segment_min(values.reshape(-1),
+                      _flat_segments(segment_ids, num_segments),
+                      b * num_segments)
+    return out.reshape(b, num_segments)
+
+
+def lex_searchsorted(keys_r, keys_c, q_r, q_c, n_steps: int = 32):
+    """Fixed-depth binary search for the pairs (q_r, q_c) in the
+    lexicographically sorted key pairs (keys_r, keys_c). Returns (pos,
+    found): the insertion index and the exact-hit mask. ``n_steps=32``
+    covers any int32-sized array."""
+    m = keys_r.shape[0]
+    lo = torch.zeros_like(q_r)
+    hi = torch.full_like(q_r, m)
+    for _ in range(n_steps):
+        mid = torch.div(lo + hi, 2, rounding_mode="floor")
+        mid_c = mid.clamp(0, m - 1).long()
+        kr = keys_r[mid_c]
+        kc = keys_c[mid_c]
+        lt = (kr < q_r) | ((kr == q_r) & (kc < q_c))
+        lo = torch.where(lt, mid + 1, lo)
+        hi = torch.where(lt, hi, mid)
+    pos_c = lo.clamp(0, m - 1).long()
+    found = (lo < m) & (keys_r[pos_c] == q_r) & (keys_c[pos_c] == q_c)
+    return lo, found
+
+
+def searchsorted_in_window(keys, q, lo, hi, n_steps: int):
+    """Per-query binary search for ``q`` inside the sorted window
+    ``keys[lo:hi)``. ``n_steps`` must cover the widest window
+    (``csr.window_depth`` of the max row degree). Returns (pos, found)."""
+    m = keys.shape[0]
+    hi0 = hi
+    for _ in range(n_steps):
+        mid = torch.div(lo + hi, 2, rounding_mode="floor")
+        k = keys[mid.clamp(0, m - 1).long()]
+        lt = k < q
+        lo = torch.where(lt, mid + 1, lo)
+        hi = torch.where(lt, hi, mid)
+    found = (lo < hi0) & (keys[lo.clamp(0, m - 1).long()] == q)
+    return lo, found
+
+
+def batched_searchsorted_in_window(keys, q, lo, hi, n_steps: int):
+    """Batched ``searchsorted_in_window``: keys [B, m]; q/lo/hi [B, k] in
+    per-instance coordinates. One flat search over B * m keys with each
+    instance's windows offset by b * m. Returns (pos [B, k] local,
+    found [B, k])."""
+    b, m = keys.shape
+    offs = torch.arange(b, dtype=lo.dtype, device=lo.device)[:, None] * m
+    pos, found = searchsorted_in_window(
+        keys.reshape(-1), q.reshape(-1), (lo + offs).reshape(-1),
+        (hi + offs).reshape(-1), n_steps=n_steps)
+    return pos.reshape(q.shape) - offs, found.reshape(q.shape)

@@ -1,0 +1,100 @@
+"""Shared harness of the torch port's parity tests, and its own check.
+
+``run_reference`` runs a script against the JAX package in a fresh child
+process (``_subproc.run_with_devices``) and exchanges numpy arrays with it
+through ``.npz`` files. The child gives ``jax.experimental`` the
+``enable_x64`` name that the JAX package imports and that newer jax
+releases dropped; the alias lives only in the child, so the JAX suite's
+own verdicts in the pytest process do not depend on it. Each test module
+runs all its cases in one module-scoped child, which keeps every test far
+inside the per-test time budget.
+
+The test modules build their inputs with the port's copy of
+``core.graph`` (numpy, seeded), so both sides see identical arrays.
+"""
+import pathlib
+import re
+import textwrap
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+from _subproc import run_with_devices  # noqa: E402
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+_PRELUDE = """\
+import jax
+import jax.experimental
+
+if not hasattr(jax.experimental, "enable_x64"):
+    jax.experimental.enable_x64 = jax.enable_x64
+import numpy as np
+
+"""
+
+
+def run_reference(body: str, inputs: dict, workdir) -> dict:
+    """Run ``body`` in a child process with the JAX package importable.
+
+    ``body`` reads the dict ``IN`` (the numpy ``inputs``) and fills the
+    dict ``OUT`` with numpy-convertible values; the filled ``OUT`` is
+    returned as numpy arrays."""
+    workdir = pathlib.Path(workdir)
+    src, dst = workdir / "in.npz", workdir / "out.npz"
+    np.savez(src, **inputs)
+    script = (_PRELUDE + f"IN = dict(np.load({str(src)!r}))\nOUT = {{}}\n"
+              + textwrap.dedent(body)
+              + f"\nnp.savez({str(dst)!r}, "
+              "**{k: np.asarray(v) for k, v in OUT.items()})\n")
+    run_with_devices(script, 1)
+    with np.load(dst) as f:
+        return {k: f[k] for k in f.files}
+
+
+def test_harness_round_trip(tmp_path):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((3, 5)).astype(np.float32)
+    idx = rng.integers(0, 7, 11).astype(np.int32)
+    out = run_reference("""
+        import jax.numpy as jnp
+        from repro.core import graph
+        OUT["twice"] = jnp.asarray(IN["x"]) * 2
+        OUT["idx"] = IN["idx"]
+        OUT["kinds"] = np.array(len(graph.SUITE_KINDS))
+    """, {"x": x, "idx": idx}, tmp_path)
+    np.testing.assert_array_equal(out["twice"], x * 2)
+    assert out["twice"].dtype == np.float32
+    np.testing.assert_array_equal(out["idx"], idx)
+    assert int(out["kinds"]) == 5
+
+
+_BANNED = re.compile(
+    r"^\s*(?:import\s+(?:jax|repro)(?:[.\s,]|$)"
+    r"|from\s+(?:jax|repro)(?:[.\s]|$))"
+    r"|__import__\(\s*['\"](?:jax|repro)\b|import_module\(\s*['\"](?:jax|repro)\b",
+    re.MULTILINE)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    sources = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    sources.append(REPO / "chip_smoke.py")
+    assert len(sources) > 10
+    offenders = []
+    for path in sources:
+        for m in _BANNED.finditer(path.read_text()):
+            offenders.append(f"{path.relative_to(REPO)}: {m.group(0).strip()}")
+    assert not offenders, "the port must not import jax or repro:\n" + \
+        "\n".join(offenders)
+
+
+@pytest.mark.parametrize("line, banned", [
+    ("import jax", True), ("import jax.numpy as jnp", True),
+    ("from jax import lax", True), ("from repro.core import single", True),
+    ("    import repro", True), ("from repro_torch.core import api", False),
+    ("import repro_torch", False), ("x = jaxlike", False),
+])
+def test_import_pattern(line, banned):
+    assert bool(_BANNED.search(line)) == banned
