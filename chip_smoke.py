@@ -2,9 +2,10 @@
 """Chip check of the torch port (``src/repro_torch``) on one NVIDIA GPU.
 
 Builds the hand-written CUDA kernels from this checkout, drives the port's
-main path — ``solve()`` — at the size a sparse direct solver hands to its
-matching step, holds each kernel bit for bit against its plain torch
-version on the card, and prints what it measured:
+two paths — ``solve()`` at the size a sparse direct solver hands to its
+matching step, and LM serving (``serve_lm``) on qwen2-0.5b at full width
+and depth — holds each kernel against its plain torch version on the card,
+and prints what it measured:
 
   1. build the kernels (``nvcc``, sm_90a); print the build time and the
      card's name and power limit;
@@ -22,7 +23,18 @@ version on the card, and prints what it measured:
      of the phase-2 instance, with the median time of each; then one
      ``solve()`` of that instance under ``torch.profiler``: the device's
      busy share and the kernels that take its time;
-  5. n = 400: ``solve()`` against the exact optimum (ratio >= 2/3).
+  5. n = 400: ``solve()`` against the exact optimum (ratio >= 2/3);
+  6. [lm] qwen2-0.5b (24 layers, d_model 896, bf16, weights drawn from
+     seed 0 on the card): ``serve_lm`` with batch 4, a 2,048-token prompt
+     and 32 greedy decode steps through the flash-attention kernel, which
+     must launch once per layer of the prefill; the same prefill through
+     the plain attention, logits compared; the smoke-size model (float32)
+     on the card against the same weights on the CPU, ids identical;
+     one prefill and four decode steps under ``torch.profiler``;
+  7. [flash] the flash-attention kernel against its plain version on the
+     prefill's shapes (bf16 and float32, causal and full, and a ragged
+     S), timed beside its bound, its plain version and
+     ``torch.nn.functional.scaled_dot_product_attention``.
 
 Run from the root of a checkout on a machine with the card:
 
@@ -35,6 +47,8 @@ record as JSON; the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -49,6 +63,7 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     MIN_GAIN,
     MatchingProblem,
@@ -68,6 +83,18 @@ from repro_torch.kernels.cycle_gain.persistent import (  # noqa: E402
     awac_persistent_batched,
     awac_persistent_plain,
 )
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_plain,
+    flash_attention,
+)
+from repro_torch.launch.serve import (  # noqa: E402
+    grow_cache,
+    prompt_tokens,
+    serve_lm,
+)
+from repro_torch.models import build_defs  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.param import count_params  # noqa: E402
 from repro_torch.sparse.csr import (  # noqa: E402
     batched_row_ptr_from_sorted,
     row_ptr_from_sorted,
@@ -75,8 +102,21 @@ from repro_torch.sparse.csr import (  # noqa: E402
 
 SINGLE = dict(n=1_048_576, avg_degree=16.0, kind="antigreedy", seed=0)
 BATCH = dict(b=16, n=65_536, avg_degree=8.0)
+LM = dict(batch=4, prompt_len=2048, decode_steps=32, seed=0)
+QWEN2_0_5B_PARAMS = 494_032_768  # count_params(build_defs(cfg)) in JAX
+# kernel path against plain attention, last-position logits: atol as a
+# share of the largest |logit|. The two paths round bf16 attention outputs
+# apart (one bf16 ulp is 2^-8 of a value), and 24 layers of bf16
+# residual stream carry such differences to the head.
+LM_LOGIT_TOL = 2e-2
+# and the kernel path no further from the same model run in float32 than
+# this factor times the plain path's distance from it
+LM_F32_RATIO = 2.0
+# flash attention against its plain version (tests/test_kernels.py:71)
+FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 
 
 def require(cond, message: str) -> None:
@@ -132,9 +172,10 @@ def assert_identical(got, want, what: str) -> float:
     return err
 
 
-def bound_ms(bytes_moved: float, f32_ops: float) -> tuple[float, str]:
+def bound_ms(bytes_moved: float, ops: float,
+             ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = f32_ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -182,12 +223,12 @@ def mcm_counted(row, col, val, n, st):
     return single.state_from_mates(row, col, val, n, mr, mc), out
 
 
-def phase_profile(log, p):
-    """Device busy share over one ``solve()`` and the kernels that take
+def profiled(fn, label: str) -> dict:
+    """Device busy share over one call of ``fn`` and the kernels that take
     its device time, from ``torch.profiler``."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, t = wall(lambda: solve(p))
+        _, t = wall(fn)
     # the rows of device kernels only: an operator's row repeats the
     # device time of the kernels it launched
     rows = [e for e in prof.key_averages()
@@ -198,17 +239,22 @@ def phase_profile(log, p):
             e, "self_cuda_time_total", 0.0)
 
     busy_us = sum(dev_us(e) for e in rows)
-    require(busy_us > 0, "the profiler recorded no device time")
+    require(busy_us > 0, f"[profile] {label}: no device time recorded")
     top = sorted(rows, key=dev_us, reverse=True)[:12]
-    print(f"[profile] solve() under the profiler: {t:.3f} s wall, device "
+    print(f"[profile] {label} under the profiler: {t:.3f} s wall, device "
           f"busy {busy_us / 1e6:.3f} s ({100 * busy_us / 1e6 / t:.1f}%), "
           f"{sum(e.count for e in rows)} kernel launches")
     for e in top:
         print(f"[profile]   {dev_us(e) / 1e3:10.3f} ms  {e.count:7d} x  "
               f"{e.key[:90]}")
-    log["profile"] = dict(wall_s=t, device_busy_s=busy_us / 1e6, top=[
+    return dict(wall_s=t, device_busy_s=busy_us / 1e6, top=[
         dict(name=e.key, device_ms=dev_us(e) / 1e3, count=e.count)
         for e in top])
+
+
+def phase_profile(log, p):
+    """One ``solve()`` under the profiler."""
+    log["profile"] = profiled(lambda: solve(p), "solve()")
 
 
 def phase_build(log):
@@ -471,6 +517,165 @@ def phase_quality(log):
     log["ratio_n400"] = ratio
 
 
+def attention_work(b, h, hkv, s, sk, d, causal, itemsize):
+    """Bytes and operations of one attention forward on these shapes: q,
+    k, v read once and o written once; two products of 2 * D operations
+    per (query, key) pair that the mask keeps."""
+    pairs = (float(np.minimum(np.arange(1, s + 1), sk).sum()) if causal
+             else float(s) * sk)
+    return (itemsize * (2 * b * h * s * d + 2 * b * hkv * sk * d),
+            4.0 * b * h * d * pairs)
+
+
+def phase_lm(log, kernels):
+    """LM serving on qwen2-0.5b at full width and depth, through the
+    flash-attention kernel; the same prefill through the plain attention;
+    the smoke-size model on the card against the CPU."""
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), attention_impl="cuda")
+    dev = torch.device("cuda")
+    b, plen, steps = LM["batch"], LM["prompt_len"], LM["decode_steps"]
+    model, t_init = wall(lambda: build_defs(cfg, device=dev, seed=LM["seed"]))
+    n_params = count_params(model)
+    require(n_params == QWEN2_0_5B_PARAMS,
+            f"qwen2-0.5b has {n_params} parameters, not {QWEN2_0_5B_PARAMS}")
+    serve_lm(cfg, b, plen, 2, device=dev, model=model)  # warm-up: cuBLAS, allocator
+
+    # the main path, as a user calls it; the counts are read right after
+    backend.reset_launch_counts()
+    out = serve_lm(cfg, b, plen, steps, device=dev, model=model)
+    counts = backend.launch_counts()
+    require(counts["flash_attention"] > 0,
+            f"[lm] the flash-attention kernel was not launched: {counts}")
+    require(counts["flash_attention"] == cfg.n_layers,
+            f"[lm] {counts['flash_attention']} kernel launches in one "
+            f"prefill, not one per layer ({cfg.n_layers})")
+    kernels["flash_attention"]["launches"] = counts["flash_attention"]
+    ids = out.ids
+    require(tuple(ids.shape) == (b, steps) and bool((ids >= 0).all())
+            and bool((ids < cfg.vocab).all()), f"[lm] ids {tuple(ids.shape)}")
+    require(bool(torch.isfinite(out.last_logits).all()),
+            "[lm] non-finite logits")
+    print(f"[lm] qwen2-0.5b ({n_params} parameters, float32 weights, bf16 "
+          f"activations, drawn in {t_init:.2f} s): batch {b}, prompt {plen}, "
+          f"{steps} decode steps; prefill {out.prefill_ms:.1f} ms, decode "
+          f"{out.decode_ms:.2f} ms/token; {counts['flash_attention']} kernel "
+          f"launches; first ids {ids[:, :8].tolist()}")
+
+    # the same prefill through the plain attention
+    tokens = prompt_tokens(cfg, b, plen, LM["seed"]).to(dev)
+    plain_cfg = dataclasses.replace(cfg, attention_impl="torch")
+    (plain_logits, _), t_plain = wall(lambda: T.prefill(model, tokens,
+                                                        plain_cfg))
+    (kern_logits, _), t_kern = wall(lambda: T.prefill(model, tokens, cfg))
+    require(torch.equal(kern_logits, out.last_logits),
+            "[lm] a second kernel prefill gave other logits")
+    diff = float((kern_logits - plain_logits).abs().max())
+    top = float(plain_logits.abs().max())
+    agree = float((kern_logits.argmax(-1) == plain_logits.argmax(-1))
+                  .float().mean())
+    require(diff <= LM_LOGIT_TOL * top,
+            f"[lm] kernel and plain prefill logits differ by {diff} "
+            f"(largest |logit| {top}, tolerance {LM_LOGIT_TOL} of it)")
+    # both bf16 paths against the same model in float32 (plain attention):
+    # the kernel path must not stray further from it than the plain path,
+    # up to a factor LM_F32_RATIO
+    f32_logits, _ = T.prefill(model, tokens, dataclasses.replace(
+        plain_cfg, dtype="float32"))
+    err_kern = float((kern_logits - f32_logits).abs().max())
+    err_plain = float((plain_logits - f32_logits).abs().max())
+    require(err_kern <= LM_F32_RATIO * err_plain,
+            f"[lm] against the float32 model the kernel path errs by "
+            f"{err_kern}, the plain path by {err_plain}")
+    print(f"[lm] prefill logits, kernel against plain attention: max abs "
+          f"diff {diff!r} (largest |logit| {top!r}, tolerance "
+          f"{LM_LOGIT_TOL * top!r}); against the float32 model: kernel "
+          f"path {err_kern!r}, plain path {err_plain!r}; greedy first token "
+          f"agrees on {agree * b:.0f} of {b} rows; prefill alone "
+          f"{t_kern * 1e3:.1f} ms (kernel) / {t_plain * 1e3:.1f} ms (plain)")
+
+    # where the time goes: one prefill, then four decode steps
+    log["lm_profile_prefill"] = profiled(
+        lambda: T.prefill(model, tokens, cfg), "[lm] prefill")
+    cache = grow_cache(T.prefill(model, tokens, cfg)[1], cfg, plen + 4)
+    tok = kern_logits.argmax(-1)[:, None]
+    log["lm_profile_decode"] = profiled(
+        lambda: [T.decode_step(model, cache, tok, plen + i, cfg)
+                 for i in range(4)], "[lm] 4 decode steps")
+
+    # the smoke-size model (float32) on the card against the CPU
+    small = dataclasses.replace(get_config("qwen2-0.5b", reduced=True),
+                                attention_impl="cuda")
+    m_cpu = build_defs(small, device="cpu", seed=0)
+    r_gpu = serve_lm(small, 2, 128, 8, device=dev,
+                     model=copy.deepcopy(m_cpu).to(dev))
+    r_cpu = serve_lm(small, 2, 128, 8, device="cpu", model=m_cpu)
+    small_diff = float((r_gpu.last_logits.cpu() - r_cpu.last_logits)
+                       .abs().max())
+    require(torch.equal(r_gpu.ids.cpu(), r_cpu.ids) and small_diff <= 1e-4,
+            f"[lm] smoke model: card and CPU differ (ids equal: "
+            f"{torch.equal(r_gpu.ids.cpu(), r_cpu.ids)}, logits {small_diff})")
+    print(f"[lm] qwen2-0.5b-smoke float32: card == CPU ids, logits max abs "
+          f"diff {small_diff!r}")
+    log["lm"] = dict(params=n_params, batch=b, prompt_len=plen,
+                     decode_steps=steps, prefill_ms=out.prefill_ms,
+                     decode_ms_per_token=out.decode_ms,
+                     prefill_kernel_ms=t_kern * 1e3,
+                     prefill_plain_ms=t_plain * 1e3,
+                     launches=counts["flash_attention"],
+                     logits_max_abs_diff=diff, largest_logit=top,
+                     f32_err_kernel=err_kern, f32_err_plain=err_plain,
+                     first_token_agreement=agree, smoke_diff=small_diff,
+                     first_ids=ids[:, :8].tolist())
+
+
+def phase_flash(log, kernels):
+    """The flash-attention kernel against its plain version on the
+    prefill's shapes, and timed there."""
+    dev = torch.device("cuda")
+    b, s = LM["batch"], LM["prompt_len"]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cases = [(torch.bfloat16, True, s), (torch.float32, True, s),
+             (torch.bfloat16, False, s), (torch.bfloat16, True, 1000)]
+    k5 = kernels["flash_attention"]
+    k5["max_abs_err"] = 0.0
+    rows = []
+    for dtype, causal, sq in cases:
+        q, k, v = (torch.randn((b, h, sq, 64), generator=gen, device=dev)
+                   .to(dtype) for h in (14, 2, 2))
+        got = flash_attention(q, k, v, causal=causal)
+        sync()
+        want = attention_plain(q, k, v, causal=causal)
+        tol = FLASH_TOL[dtype]
+        err = float((got.float() - want.float()).abs().max())
+        require(got.dtype == dtype and torch.allclose(
+            got.float(), want.float(), rtol=tol, atol=tol),
+            f"[flash] {dtype} causal={causal} S={sq}: kernel differs from "
+            f"plain by {err}")
+        k5["max_abs_err"] = max(k5["max_abs_err"], err)
+        rows.append(dict(dtype=str(dtype), causal=causal, s=sq, err=err))
+        print(f"[flash] [{b}, 14, {sq}, 64] / [{b}, 2, {sq}, 64] {dtype} "
+              f"causal={causal}: kernel == plain within {tol} (max abs err "
+              f"{err!r})")
+    # timed on the prefill's own shapes: bf16, causal
+    q, k, v = (torch.randn((b, h, s, 64), generator=gen, device=dev)
+               .to(torch.bfloat16) for h in (14, 2, 2))
+    k5["ms"] = event_ms(lambda: flash_attention(q, k, v, causal=True), 21)
+    k5["plain_ms"] = event_ms(lambda: attention_plain(q, k, v, causal=True),
+                              5)
+    k5["library_ms"] = event_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 21)
+    k5["bound_ms"], k5["bound_by"] = bound_ms(
+        *attention_work(b, 14, 2, s, s, 64, True, 2), BF16_OPS_PER_S)
+    print(f"[flash] [{b}, 14, {s}, 64] bf16 causal: kernel {k5['ms']:.3f} ms "
+          f"(median of 21), plain {k5['plain_ms']:.3f} ms (median of 5), "
+          f"scaled_dot_product_attention {k5['library_ms']:.3f} ms (median "
+          f"of 21), bound {k5['bound_ms']:.4f} ms ({k5['bound_by']})")
+    log["flash"] = dict(cases=rows, ms=k5["ms"], plain_ms=k5["plain_ms"],
+                        library_ms=k5["library_ms"],
+                        bound_ms=k5["bound_ms"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=None,
@@ -491,6 +696,11 @@ def main(argv=None) -> int:
             source="src/repro_torch/kernels/csrc/awac_persistent.cu",
             replaces="src/repro/kernels/cycle_gain/persistent.py:210",
             library_ms=None),
+        "flash_attention": dict(
+            name="flash_attention", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/"
+                     "flash_attention.py:73"),
     }
     log = {}
     t0 = time.perf_counter()
@@ -500,6 +710,8 @@ def main(argv=None) -> int:
     phase_sweep(log, kernels, single_run)
     phase_profile(log, single_run[0])
     phase_quality(log)
+    phase_lm(log, kernels)
+    phase_flash(log, kernels)
     log["total_s"] = time.perf_counter() - t0
     print(f"[done] {log['total_s']:.1f} s; card {log['card']}")
     if args.out is not None:

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib
 import os
 import pathlib
 import shutil
@@ -26,7 +27,7 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("awac_sweep.cu", "awac_persistent.cu")
+SOURCES = ("awac_sweep.cu", "awac_persistent.cu", "flash_attention.cu")
 HEADERS = ("awac_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,6 +43,9 @@ SIGNATURES = {
     "awac_sweep": [c_ptr] * 8 + [c_float, c_int, c_ll, c_int] + [c_ptr] * 6,
     "awac_persistent": [c_ptr] * 9 + [c_float, c_int, c_int, c_ll, c_int]
     + [c_ptr] * 9,
+    # q, k, v, o; B, H, Hkv, S, Sk, D, dtype (0 f32, 1 bf16), causal;
+    # scale; stream
+    "flash_attention": [c_ptr] * 4 + [c_int] * 8 + [c_float, c_ptr],
 }
 
 _LIB = None
@@ -135,14 +139,21 @@ def check(err: int, name: str) -> None:
 
 def launch_counts() -> dict[str, int]:
     """Launches of each hand-written kernel since the last reset."""
-    from repro_torch.kernels.cycle_gain import awac_sweep, persistent
-
+    awac_sweep, persistent, flash = _kernel_modules()
     return {"awac_sweep": awac_sweep.launches,
-            "awac_persistent": persistent.launches}
+            "awac_persistent": persistent.launches,
+            "flash_attention": flash.launches}
 
 
 def reset_launch_counts() -> None:
-    from repro_torch.kernels.cycle_gain import awac_sweep, persistent
+    for mod in _kernel_modules():
+        mod.launches = 0
 
-    awac_sweep.launches = 0
-    persistent.launches = 0
+
+def _kernel_modules():
+    """The wrapper modules that hold the launch counters (imported here:
+    they import this module; the flash-attention package exports a
+    function of its module's name, so the module is looked up by path)."""
+    return tuple(importlib.import_module(f"repro_torch.kernels.{m}") for m in (
+        "cycle_gain.awac_sweep", "cycle_gain.persistent",
+        "flash_attention.flash_attention"))

@@ -1,0 +1,18 @@
+"""Model facade: config -> parameters for the families the port runs.
+Only the dense LM path is ported; the recsys and GNN families come with
+later slices, and ``build_loss`` with training (ROADMAP.md, Queue 1,
+item 12)."""
+from __future__ import annotations
+
+
+def build_defs(cfg, device=None, seed: int = 0):
+    """The parameters of ``cfg``'s model, drawn from ``seed`` on
+    ``device``. The JAX package returns parameter definitions here and
+    materialises them apart; a torch module is built with its weights."""
+    if cfg.family == "lm":
+        from repro_torch.models.transformer import LM
+
+        return LM(cfg, device=device, seed=seed)
+    raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
+                              "(ROADMAP.md, Queue 1, item 12)")
+

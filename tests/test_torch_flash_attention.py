@@ -1,0 +1,204 @@
+"""The port's flash attention (K5) against the JAX package, on the CPU,
+and the CUDA kernel against its plain version, on the card.
+
+On identical inputs (numpy, seeded; bf16 inputs are the same float32 draw
+rounded on each side, which rounds identically):
+
+  - ``attention_plain`` and the kernel-layout wrapper ``flash_attention``
+    (which takes the plain version for a CPU tensor) against JAX's Pallas
+    ``flash_attention`` (interpreted) and ``attention_ref``, on the shapes
+    of ``tests/test_kernels.py`` plus qwen2-0.5b's head geometry (GQA 7:1),
+    causal and full, at 2e-5 in float32 and 2e-2 in bf16 (the bars of
+    ``tests/test_kernels.py``);
+  - a ragged S (not a multiple of the TPU kernel's tile) against
+    ``attention_ref``, since the JAX kernel refuses it;
+  - the model-layout entry ``ops.attention`` [B, S, H, D] against JAX's.
+
+The ``gpu`` tests hold the CUDA kernel to the plain version on the card
+and skip here; on the machine with the card:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_flash_attention.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention,
+    attention_plain,
+    flash_attention,
+)
+from test_torch_harness import run_reference  # noqa: E402
+
+SHAPES = [  # b, h, hkv, s, d
+    (1, 4, 4, 256, 64),
+    (2, 8, 2, 256, 64),   # GQA 4:1
+    (1, 2, 1, 512, 128),  # MQA
+    (1, 14, 2, 128, 64),  # qwen2-0.5b: GQA 7:1
+]
+RAGGED = (1, 14, 2, 100, 64)
+DTYPES = ("float32", "bfloat16")
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _inputs(b, h, hkv, s, d):
+    rng = np.random.default_rng(b * 1000 + h * 100 + hkv * 10 + s + d)
+    return tuple(rng.normal(size=shape).astype(np.float32)
+                 for shape in ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+
+
+def _key(shape):
+    return "x".join(map(str, shape))
+
+
+REFERENCE = """
+import jax.numpy as jnp
+from repro.kernels.flash_attention import attention_ref, flash_attention
+from repro.kernels.flash_attention.ops import attention
+
+for key in IN["keys"]:
+    key = str(key)
+    q, k, v = IN[key + "__q"], IN[key + "__k"], IN[key + "__v"]
+    ragged = int(key.split("x")[3]) % 128 != 0
+    for dt in ("float32", "bfloat16"):
+        qj, kj, vj = (jnp.asarray(x, getattr(jnp, dt)) for x in (q, k, v))
+        for causal in (True, False):
+            tag = f"{key}__{dt}__{int(causal)}"
+            OUT[tag + "__ref"] = np.asarray(
+                attention_ref(qj, kj, vj, causal=causal), np.float32)
+            if ragged:
+                continue
+            OUT[tag + "__flash"] = np.asarray(
+                flash_attention(qj, kj, vj, causal=causal, tq=128, tk=128),
+                np.float32)
+            sw = [jnp.swapaxes(x, 1, 2) for x in (qj, kj, vj)]
+            OUT[tag + "__ops"] = np.asarray(
+                attention(*sw, causal=causal, use_kernel=True), np.float32)
+"""
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    inputs = {"keys": np.array([_key(s) for s in SHAPES + [RAGGED]])}
+    for shape in SHAPES + [RAGGED]:
+        q, k, v = _inputs(*shape)
+        inputs.update({f"{_key(shape)}__q": q, f"{_key(shape)}__k": k,
+                       f"{_key(shape)}__v": v})
+    return run_reference(REFERENCE, inputs, tmp_path_factory.mktemp("flash"))
+
+
+def _torch_inputs(shape, dtype, device="cpu"):
+    return tuple(torch.from_numpy(x).to(device=device,
+                                        dtype=getattr(torch, dtype))
+                 for x in _inputs(*shape))
+
+
+def _close(got, want, dtype):
+    tol = TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(), want, rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", SHAPES, ids=_key)
+def test_plain_matches_jax_kernel_and_reference(ref, shape, causal, dtype):
+    q, k, v = _torch_inputs(shape, dtype)
+    tag = f"{_key(shape)}__{dtype}__{int(causal)}"
+    got = attention_plain(q, k, v, causal=causal)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _close(got, ref[tag + "__flash"], dtype)
+    _close(got, ref[tag + "__ref"], dtype)
+    # the wrapper takes the plain version for a CPU tensor
+    assert torch.equal(flash_attention(q, k, v, causal=causal), got)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_ragged_sequence_matches_reference(ref, causal, dtype):
+    q, k, v = _torch_inputs(RAGGED, dtype)
+    got = flash_attention(q, k, v, causal=causal)
+    _close(got, ref[f"{_key(RAGGED)}__{dtype}__{int(causal)}__ref"], dtype)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", SHAPES[1:], ids=_key)
+def test_model_layout_matches_jax(ref, shape, causal, dtype, use_kernel):
+    q, k, v = (x.transpose(1, 2) for x in _torch_inputs(shape, dtype))
+    got = attention(q, k, v, causal=causal, use_kernel=use_kernel)
+    assert got.shape == q.shape
+    tag = f"{_key(shape)}__{dtype}__{int(causal)}"
+    _close(got, ref[tag + "__ops"], dtype)
+
+
+@pytest.mark.parametrize("bad, match", [
+    (lambda q, k, v: (q.half(), k.half(), v.half()), "float32 or bfloat16"),
+    (lambda q, k, v: (q, k.double(), v), "one dtype"),
+    (lambda q, k, v: (q[:, :3], k, v), "multiple of Hkv"),
+    (lambda q, k, v: (q, k[..., :32], v[..., :32]), "do not match"),
+    (lambda q, k, v: (q, k, v[:, :, :10]), "do not match"),
+    (lambda q, k, v: (q[0], k[0], v[0]), r"\[B, H, S, D\]"),
+])
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad, match):
+    q, k, v = _torch_inputs((1, 4, 2, 16, 64), "float32")
+    with pytest.raises(ValueError, match=match):
+        flash_attention(*bad(q, k, v))
+
+
+def test_kernel_path_refuses_a_gradient():
+    q, k, v = (x.transpose(1, 2).requires_grad_()
+               for x in _torch_inputs((1, 4, 2, 16, 64), "float32"))
+    with pytest.raises(NotImplementedError, match="backward"):
+        attention(q, k, v, use_kernel=True)
+    with torch.no_grad():
+        attention(q, k, v, use_kernel=True)
+    attention(q, k, v, use_kernel=False).sum().backward()
+    assert q.grad is not None
+
+
+def test_cpu_tensors_do_not_count_as_launches():
+    reset_launch_counts()
+    flash_attention(*_torch_inputs((1, 4, 2, 16, 64), "float32"))
+    assert launch_counts()["flash_attention"] == 0
+
+
+# ------------------------------- on the card -------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel is CUDA C++ for sm_90a "
+                    "and has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", SHAPES + [RAGGED, (2, 4, 1, 1000, 32),
+                                           (1, 2, 2, 65, 128),
+                                           (2, 4, 2, 77, 16)], ids=_key)
+def test_kernel_matches_plain_on_the_card(cuda, shape, causal, dtype):
+    q, k, v = _torch_inputs(shape, dtype, cuda)
+    reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == 1
+    want = attention_plain(q, k, v, causal=causal)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    _close(got, want.float().cpu().numpy(), dtype)
+
+
+@pytest.mark.gpu
+def test_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = _torch_inputs((1, 4, 2, 128, 64), "float32", cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+    q48, k48, v48 = (x[..., :48].contiguous() for x in (q, k, v))
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q48, k48, v48)
