@@ -2,10 +2,11 @@
 """Chip check of the torch port (``src/repro_torch``) on one NVIDIA GPU.
 
 Builds the hand-written CUDA kernels from this checkout, drives the port's
-two paths — ``solve()`` at the size a sparse direct solver hands to its
-matching step, and LM serving (``serve_lm``) on qwen2-0.5b at full width
-and depth — holds each kernel against its plain torch version on the card,
-and prints what it measured:
+paths — ``solve()`` at the size a sparse direct solver hands to its
+matching step, and LM serving (``serve_lm``) on qwen2-0.5b and on the MoE
+model qwen2-moe-a2.7b with the AWPM router, both at full width and depth —
+holds each kernel against its plain torch version on the card, and prints
+what it measured:
 
   1. build the kernels (``nvcc``, sm_90a); print the build time and the
      card's name and power limit;
@@ -34,7 +35,23 @@ and prints what it measured:
   7. [flash] the flash-attention kernel against its plain version on the
      prefill's shapes (bf16 and float32, causal and full, and a ragged
      S), timed beside its bound, its plain version and
-     ``torch.nn.functional.scaled_dot_product_attention``.
+     ``torch.nn.functional.scaled_dot_product_attention``; the same at
+     qwen2-moe-a2.7b's head shape, q/k/v [4, 16, 2048, 128] bf16 causal;
+  8. [moe] qwen2-moe-a2.7b with the AWPM router (24 layers, d_model 2048,
+     60 experts top-4 and 4 shared, float32 weights drawn from seed 0 on
+     the card, bf16 activations): ``serve_lm`` with batch 4, a 2,048-token
+     prompt and 8 greedy decode steps; one prefill counted alone, which
+     must launch the router's swap-search kernel (K4) 384 times and the
+     flash-attention kernel 24 times, with every layer's router logits
+     captured by forward hooks; the AWPM routing of layers 0, 11 and 23
+     through K4 against the plain swap search, identical; the top-k router
+     on the same weights; one prefill and one decode step under
+     ``torch.profiler``; the smoke-size MoE model (float32) on the card
+     against the CPU;
+  9. [router_swap] K4 against its plain version, bit for bit, on layer 0's
+     captured router input at the prefill shape (G = 4, T = 2,100, E = 60)
+     and at the decode shape (G = 1, T = 60), and on a random (300, 60)
+     case; timed beside its bound and its plain version.
 
 Run from the root of a checkout on a machine with the card:
 
@@ -49,6 +66,7 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import gc
 import json
 import pathlib
 import statistics
@@ -87,12 +105,19 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_plain,
     flash_attention,
 )
+from repro_torch.kernels.router_swap import (  # noqa: E402
+    router_swap,
+    router_swap_padded_batched,
+    router_swap_plain_batched,
+)
+from repro_torch.kernels.router_swap.ops import pad_for_kernel  # noqa: E402
 from repro_torch.launch.serve import (  # noqa: E402
     grow_cache,
     prompt_tokens,
     serve_lm,
 )
 from repro_torch.models import build_defs  # noqa: E402
+from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.param import count_params  # noqa: E402
 from repro_torch.sparse.csr import (  # noqa: E402
@@ -104,6 +129,12 @@ SINGLE = dict(n=1_048_576, avg_degree=16.0, kind="antigreedy", seed=0)
 BATCH = dict(b=16, n=65_536, avg_degree=8.0)
 LM = dict(batch=4, prompt_len=2048, decode_steps=32, seed=0)
 QWEN2_0_5B_PARAMS = 494_032_768  # count_params(build_defs(cfg)) in JAX
+# fewer decode steps than [lm]: the AWPM router's loops run on the host
+MOE = dict(batch=4, prompt_len=2048, decode_steps=8, seed=0)
+QWEN2_MOE_PARAMS = 14_315_784_192  # count_params(build_defs(cfg)) in JAX
+MOE_CHECK_LAYERS = (0, 11, 23)
+# the smoke-size model on the card against the CPU, float32
+SMOKE_TOL = 1e-4
 # kernel path against plain attention, last-position logits: atol as a
 # share of the largest |logit|. The two paths round bf16 attention outputs
 # apart (one bf16 ulp is 2^-8 of a value), and 24 layers of bf16
@@ -223,9 +254,10 @@ def mcm_counted(row, col, val, n, st):
     return single.state_from_mates(row, col, val, n, mr, mc), out
 
 
-def profiled(fn, label: str) -> dict:
+def profiled(fn, label: str, watch: str | None = None) -> dict:
     """Device busy share over one call of ``fn`` and the kernels that take
-    its device time, from ``torch.profiler``."""
+    its device time, from ``torch.profiler``; with ``watch``, also the
+    device time and launches of the kernels whose name holds it."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, t = wall(fn)
@@ -247,9 +279,18 @@ def profiled(fn, label: str) -> dict:
     for e in top:
         print(f"[profile]   {dev_us(e) / 1e3:10.3f} ms  {e.count:7d} x  "
               f"{e.key[:90]}")
-    return dict(wall_s=t, device_busy_s=busy_us / 1e6, top=[
+    out = dict(wall_s=t, device_busy_s=busy_us / 1e6, top=[
         dict(name=e.key, device_ms=dev_us(e) / 1e3, count=e.count)
         for e in top])
+    if watch is not None:
+        hit = [e for e in rows if watch in e.key]
+        out["watch"] = dict(name=watch, count=sum(e.count for e in hit),
+                            device_ms=sum(dev_us(e) for e in hit) / 1e3)
+        print(f"[profile]   {watch}: {out['watch']['device_ms']:.3f} ms over "
+              f"{out['watch']['count']} launches "
+              f"({100 * out['watch']['device_ms'] / 1e3 / out['device_busy_s']:.2f}"
+              f"% of the device time)")
+    return out
 
 
 def phase_profile(log, p):
@@ -611,7 +652,8 @@ def phase_lm(log, kernels):
     r_cpu = serve_lm(small, 2, 128, 8, device="cpu", model=m_cpu)
     small_diff = float((r_gpu.last_logits.cpu() - r_cpu.last_logits)
                        .abs().max())
-    require(torch.equal(r_gpu.ids.cpu(), r_cpu.ids) and small_diff <= 1e-4,
+    require(torch.equal(r_gpu.ids.cpu(), r_cpu.ids)
+            and small_diff <= SMOKE_TOL,
             f"[lm] smoke model: card and CPU differ (ids equal: "
             f"{torch.equal(r_gpu.ids.cpu(), r_cpu.ids)}, logits {small_diff})")
     print(f"[lm] qwen2-0.5b-smoke float32: card == CPU ids, logits max abs "
@@ -671,9 +713,258 @@ def phase_flash(log, kernels):
           f"(median of 21), plain {k5['plain_ms']:.3f} ms (median of 5), "
           f"scaled_dot_product_attention {k5['library_ms']:.3f} ms (median "
           f"of 21), bound {k5['bound_ms']:.4f} ms ({k5['bound_by']})")
+    # qwen2-moe-a2.7b's head shape: 16 heads, 16 kv heads, D = 128
+    q, k, v = (torch.randn((b, 16, s, 128), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    got = flash_attention(q, k, v, causal=True)
+    sync()
+    want = attention_plain(q, k, v, causal=True)
+    tol = FLASH_TOL[torch.bfloat16]
+    err = float((got.float() - want.float()).abs().max())
+    require(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+            f"[flash] D=128: kernel differs from plain by {err}")
+    del want
+    k5["max_abs_err"] = max(k5["max_abs_err"], err)
+    d128 = dict(err=err, ms=event_ms(
+        lambda: flash_attention(q, k, v, causal=True), 21))
+    d128["plain_ms"] = event_ms(lambda: attention_plain(q, k, v, causal=True),
+                                5)
+    d128["library_ms"] = event_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True), 21)
+    d128["bound_ms"], d128["bound_by"] = bound_ms(
+        *attention_work(b, 16, 16, s, s, 128, True, 2), BF16_OPS_PER_S)
+    print(f"[flash] [{b}, 16, {s}, 128] bf16 causal: kernel == plain within "
+          f"{tol} (max abs err {err!r}); kernel {d128['ms']:.3f} ms (median "
+          f"of 21), plain {d128['plain_ms']:.3f} ms (median of 5), "
+          f"scaled_dot_product_attention {d128['library_ms']:.3f} ms (median "
+          f"of 21), bound {d128['bound_ms']:.4f} ms ({d128['bound_by']})")
     log["flash"] = dict(cases=rows, ms=k5["ms"], plain_ms=k5["plain_ms"],
                         library_ms=k5["library_ms"],
-                        bound_ms=k5["bound_ms"])
+                        bound_ms=k5["bound_ms"], d128=d128)
+
+
+def free_card() -> None:
+    """Return what earlier phases left to the allocator to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_moe(log, kernels):
+    """MoE serving on qwen2-moe-a2.7b at full width and depth with the AWPM
+    router; returns layer 0's router input at the prefill and the decode
+    shape, for ``phase_router_swap``."""
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b", router="awpm"),
+                              attention_impl="cuda")
+    md = cfg.moe
+    dev = torch.device("cuda")
+    b, plen, steps = MOE["batch"], MOE["prompt_len"], MOE["decode_steps"]
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    model, t_init = wall(lambda: build_defs(cfg, device=dev, seed=MOE["seed"]))
+    n_params = count_params(model)
+    require(n_params == QWEN2_MOE_PARAMS,
+            f"qwen2-moe-a2.7b has {n_params} parameters, not "
+            f"{QWEN2_MOE_PARAMS}")
+    print(f"[moe] qwen2-moe-a2.7b: {n_params} parameters, float32 weights "
+          f"drawn in {t_init:.2f} s; {torch.cuda.memory_allocated() / 1e9:.2f}"
+          f" GB on the card")
+    serve_lm(cfg, b, plen, 2, device=dev, model=model)  # warm-up
+
+    # the main path, as a user calls it; the counts are read right after
+    backend.reset_launch_counts()
+    out = serve_lm(cfg, b, plen, steps, device=dev, model=model)
+    counts = backend.launch_counts()
+    per_forward = cfg.n_layers * md.top_k * md.router_swap_rounds
+    require(counts["router_swap"] == per_forward * steps,
+            f"[moe] {counts['router_swap']} K4 launches over a prefill and "
+            f"{steps - 1} decode steps, not {per_forward} per forward")
+    require(counts["flash_attention"] == cfg.n_layers,
+            f"[moe] {counts['flash_attention']} K5 launches, not one per "
+            f"layer ({cfg.n_layers})")
+    kernels["router_swap"]["launches"] = counts["router_swap"]
+    ids = out.ids
+    require(tuple(ids.shape) == (b, steps) and bool((ids >= 0).all())
+            and bool((ids < cfg.vocab).all()), f"[moe] ids {tuple(ids.shape)}")
+    require(bool(torch.isfinite(out.last_logits).all()),
+            "[moe] non-finite logits")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # one prefill counted alone, every MoE layer's router logits captured
+    tokens = prompt_tokens(cfg, b, plen, MOE["seed"]).to(dev)
+    captured = []
+
+    def keep(module, inputs, output):
+        captured.append(output)
+
+    hooks = [bp.ffn.router.register_forward_hook(keep)
+             for bp in model.moe_blocks]
+    backend.reset_launch_counts()
+    try:
+        (logits, _), t_pf = wall(lambda: T.prefill(model, tokens, cfg))
+    finally:
+        for h in hooks:
+            h.remove()
+    pf = backend.launch_counts()
+    require(pf["router_swap"] == per_forward
+            and pf["flash_attention"] == cfg.n_layers,
+            f"[moe] one prefill launched {pf}: K4 must launch {per_forward} "
+            f"times, K5 {cfg.n_layers}")
+    require(torch.equal(logits, out.last_logits),
+            "[moe] a second prefill gave other logits")
+    print(f"[moe] AWPM router, batch {b}, prompt {plen}, {steps} decode "
+          f"steps: prefill {out.prefill_ms:.1f} ms, decode "
+          f"{out.decode_ms:.2f} ms/token; peak memory {peak_gb:.2f} GB; one "
+          f"prefill launches K4 {pf['router_swap']} times and K5 "
+          f"{pf['flash_attention']} times ({t_pf * 1e3:.1f} ms); first ids "
+          f"{ids[:, :8].tolist()}")
+
+    # the routing of three layers through K4 and through the plain search
+    routes = []
+    for li in MOE_CHECK_LAYERS:
+        lgp, cap_round = M.awpm_blocks(captured[li], md)
+        got, t_k = wall(lambda: M.awpm_route_batched(
+            lgp, md.top_k, cap_round, md.router_swap_rounds))
+        want, t_p = wall(lambda: M.awpm_route_batched(
+            lgp, md.top_k, cap_round, md.router_swap_rounds,
+            use_kernel=False))
+        for a, c, what in zip(got[:3], want[:3],
+                              ("experts", "slots", "weights")):
+            require(torch.equal(a, c), f"[moe] layer {li}: {what} through K4 "
+                    f"differ from the plain swap search")
+        routes.append(dict(layer=li, groups=tuple(lgp.shape),
+                           kernel_ms=t_k * 1e3, plain_ms=t_p * 1e3))
+        print(f"[moe] layer {li}: AWPM routing of {tuple(lgp.shape)} through "
+              f"K4 == plain swap search (experts, slots, weights); "
+              f"{t_k * 1e3:.1f} ms with K4, {t_p * 1e3:.1f} ms plain")
+
+    # the top-k router on the same weights
+    topk_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        md, router="topk"))
+    serve_lm(topk_cfg, b, plen, 2, device=dev, model=model)  # warm-up
+    backend.reset_launch_counts()
+    out_t = serve_lm(topk_cfg, b, plen, steps, device=dev, model=model)
+    require(backend.launch_counts()["router_swap"] == 0,
+            "[moe] the top-k router launched K4")
+    require(bool(torch.isfinite(out_t.last_logits).all())
+            and bool((out_t.ids >= 0).all())
+            and bool((out_t.ids < cfg.vocab).all()),
+            "[moe] top-k: non-finite logits or ids outside the vocabulary")
+    print(f"[moe] top-k router, same weights: prefill {out_t.prefill_ms:.1f} "
+          f"ms, decode {out_t.decode_ms:.2f} ms/token; first ids "
+          f"{out_t.ids[:, :8].tolist()}")
+
+    # where the time goes: one prefill, then one decode step
+    log["moe_profile_prefill"] = profiled(
+        lambda: T.prefill(model, tokens, cfg), "[moe] prefill",
+        watch="router_swap")
+    cache = grow_cache(T.prefill(model, tokens, cfg)[1], cfg, plen + 2)
+    tok = logits.argmax(-1)[:, None]
+    log["moe_profile_decode"] = profiled(
+        lambda: T.decode_step(model, cache, tok, plen, cfg),
+        "[moe] 1 decode step", watch="router_swap")
+    # layer 0's router logits in a decode step
+    dec = []
+    h = model.moe_blocks[0].ffn.router.register_forward_hook(
+        lambda module, inputs, output: dec.append(output))
+    try:
+        T.decode_step(model, cache, tok, plen + 1, cfg)
+    finally:
+        h.remove()
+    swap_inputs = dict(prefill=M.awpm_blocks(captured[0], md),
+                       decode=M.awpm_blocks(dec[0], md))
+    log["moe"] = dict(params=n_params, batch=b, prompt_len=plen,
+                      decode_steps=steps, prefill_ms=out.prefill_ms,
+                      decode_ms_per_token=out.decode_ms, peak_gb=peak_gb,
+                      prefill_alone_ms=t_pf * 1e3, launches=pf,
+                      routes=routes, topk_prefill_ms=out_t.prefill_ms,
+                      topk_decode_ms_per_token=out_t.decode_ms,
+                      first_ids=ids[:, :8].tolist())
+    del model, cache, out, out_t, logits, captured
+    free_card()
+
+    # the smoke-size model (float32) on the card against the CPU
+    small = dataclasses.replace(
+        get_config("qwen2-moe-a2.7b", reduced=True, router="awpm"),
+        attention_impl="cuda")
+    m_cpu = build_defs(small, device="cpu", seed=0)
+    r_gpu = serve_lm(small, 2, 128, 8, device=dev,
+                     model=copy.deepcopy(m_cpu).to(dev))
+    r_cpu = serve_lm(small, 2, 128, 8, device="cpu", model=m_cpu)
+    small_diff = float((r_gpu.last_logits.cpu() - r_cpu.last_logits)
+                       .abs().max())
+    same_ids = torch.equal(r_gpu.ids.cpu(), r_cpu.ids)
+    print(f"[moe] qwen2-moe-a2.7b-smoke float32, AWPM router: card and CPU "
+          f"ids equal: {same_ids}; logits max abs diff {small_diff!r}")
+    require(same_ids and small_diff <= SMOKE_TOL,
+            f"[moe] smoke model: card and CPU differ (ids equal: {same_ids}, "
+            f"logits {small_diff})")
+    log["moe"]["smoke_diff"] = small_diff
+    return swap_inputs
+
+
+def swap_work(assign, e: int) -> tuple[float, float]:
+    """Bytes and float32 operations of one swap-gain search on these
+    inputs: the affinity, expert ids and cur read once, gain and partner
+    written once; three additions for each pair of tokens on different
+    experts (a pair on one expert is masked)."""
+    g, t = assign.shape
+    counts = torch.stack([torch.bincount(a, minlength=e) for a in assign])
+    pairs = float(g * t * t - int((counts.double() ** 2).sum()))
+    return g * t * (4 * e + 8) + g * t * 8, 3.0 * pairs
+
+
+def phase_router_swap(log, kernels, inputs):
+    """K4 against its plain version, bit for bit, on the router's own
+    inputs (layer 0's first routing round: the balanced assignment of its
+    captured logits) and on a random case; timed at the prefill shape."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cases = []
+    for what in ("prefill", "decode"):
+        lgp, cap_round = inputs[what]
+        aff = lgp.float()
+        cases.append((f"{what} layer 0", aff,
+                      M.balanced_assign_batched(aff, cap_round)))
+    cases.append(("random (300, 60)",
+                  torch.randn((1, 300, 60), generator=gen, device=dev),
+                  torch.randint(0, 60, (1, 300), generator=gen, device=dev)))
+    k4 = kernels["router_swap"]
+    k4["max_abs_err"] = 0.0
+    rows = []
+    for what, aff, assign in cases:
+        cur = torch.gather(aff, 2, assign[..., None])[..., 0]
+        got = router_swap_padded_batched(aff, assign, cur)
+        sync()
+        want = router_swap_plain_batched(aff, assign, cur)
+        k4["max_abs_err"] = max(k4["max_abs_err"], assert_identical(
+            got, want, f"[router_swap] {what}"))
+        require(torch.equal(got[0].view(torch.int32),
+                            want[0].view(torch.int32)),
+                f"[router_swap] {what}: gains differ in their bits")
+        found = int((got[1] >= 0).sum())
+        rows.append(dict(case=what, shape=tuple(aff.shape), with_partner=found))
+        print(f"[router_swap] {what} {tuple(aff.shape)}: kernel == plain bit "
+              f"for bit (gains and partners); {found} tokens have a partner")
+    # timed on the prefill shape
+    _, aff, assign = cases[0]
+    cur = torch.gather(aff, 2, assign[..., None])[..., 0]
+    padded = pad_for_kernel(aff, assign, cur)
+    k4["ms"] = event_ms(lambda: router_swap(*padded), 21)
+    k4["plain_ms"] = event_ms(lambda: router_swap_plain_batched(
+        aff, assign, cur), 5)
+    entry_ms = event_ms(lambda: router_swap_padded_batched(aff, assign, cur),
+                        21)
+    k4["bound_ms"], k4["bound_by"] = bound_ms(*swap_work(assign,
+                                                         aff.shape[2]))
+    print(f"[router_swap] {tuple(aff.shape)}: kernel {k4['ms']:.4f} ms "
+          f"(median of 21; {entry_ms:.4f} ms with the padding), plain "
+          f"{k4['plain_ms']:.3f} ms (median of 5), bound "
+          f"{k4['bound_ms']:.5f} ms ({k4['bound_by']})")
+    log["router_swap"] = dict(cases=rows, ms=k4["ms"],
+                              padded_entry_ms=entry_ms,
+                              plain_ms=k4["plain_ms"],
+                              bound_ms=k4["bound_ms"])
 
 
 def main(argv=None) -> int:
@@ -701,6 +992,11 @@ def main(argv=None) -> int:
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention/"
                      "flash_attention.py:73"),
+        "router_swap": dict(
+            name="router_swap", route="cuda",
+            source="src/repro_torch/kernels/csrc/router_swap.cu",
+            replaces="src/repro/kernels/router_swap/router_swap.py:68",
+            library_ms=None),
     }
     log = {}
     t0 = time.perf_counter()
@@ -712,6 +1008,9 @@ def main(argv=None) -> int:
     phase_quality(log)
     phase_lm(log, kernels)
     phase_flash(log, kernels)
+    del single_run  # the MoE model takes 57 GB of the card
+    swap_inputs = phase_moe(log, kernels)
+    phase_router_swap(log, kernels, swap_inputs)
     log["total_s"] = time.perf_counter() - t0
     print(f"[done] {log['total_s']:.1f} s; card {log['card']}")
     if args.out is not None:

@@ -9,14 +9,14 @@ from repro_torch.configs.base import LMConfig, MoECfg
 
 _MODULES = {
     "qwen2-0.5b": "qwen2_0_5b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
 }
 
 #: archs of the JAX package that the port cannot run yet -> ROADMAP item
 _NOT_YET = {
     "qwen2-7b": "Queue 1, item 12d (further dense LMs)",
     "qwen1.5-110b": "Queue 1, item 12d (further dense LMs)",
-    "qwen2-moe-a2.7b": "Queue 1, item 12b (MoE path)",
-    "deepseek-moe-16b": "Queue 1, item 12b (MoE path)",
     "bert4rec": "Queue 1, item 12e (recsys)",
     "graphsage-reddit": "Queue 1, item 12f (GNNs)",
     "equiformer-v2": "Queue 1, item 12f (GNNs)",

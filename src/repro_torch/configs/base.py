@@ -1,10 +1,12 @@
 """Config dataclasses of the language-model family (copies of the JAX
 package's ``configs/base.py``; plain frozen dataclasses).
 
-``MoECfg`` is copied so that the MoE configs load when their slice comes;
-the port runs no MoE layer yet. ``LMConfig.attention_impl`` uses the
-port's vocabulary: ``"torch"`` (the plain version, counterpart of JAX's
-``"xla"``) or ``"cuda"`` (the hand-written kernel, counterpart of
+``MoECfg`` configures the MoE layers of ``models/moe.py``: its ``router``
+is ``"topk"`` (the published baseline) or ``"awpm"`` (the matching
+router, whose swap search runs the CUDA kernel K4 on the card); the other
+fields are read as the JAX package reads them. ``LMConfig.attention_impl``
+uses the port's vocabulary: ``"torch"`` (the plain version, counterpart of
+JAX's ``"xla"``) or ``"cuda"`` (the hand-written kernel, counterpart of
 ``"pallas"``). ``remat``, ``scan`` and ``loss_chunks`` are carried so that
 a JAX config converts field for field; the port's eager one-device path
 does not read them.

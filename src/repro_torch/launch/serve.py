@@ -7,9 +7,13 @@ one device (the port of the JAX package's ``launch/serve.py``).
       --batch 4 --prompt-len 2048 --decode-steps 32
 
 The first runs the smoke-size config (``qwen2-0.5b-smoke``) on the CPU;
-the second qwen2-0.5b at full width and depth on the card. The JAX
-launcher declares ``--reduced`` as ``store_true`` with ``default=True``,
-so it can never run full width; here ``--no-reduced`` does. Without
+the second qwen2-0.5b at full width and depth on the card. ``--arch
+qwen2-moe-a2.7b`` serves the MoE model with its config's router, the
+top-k baseline; ``serve_lm(get_config("qwen2-moe-a2.7b", router="awpm"),
+...)`` serves it with the AWPM router, as the JAX package selects it.
+The JAX launcher declares ``--reduced`` as ``store_true`` with
+``default=True``, so it can never run full width; here ``--no-reduced``
+does. Without
 ``--device`` the run goes to the card and fails where there is none.
 The launcher serves prefill attention through the CUDA kernel
 (``attention_impl="cuda"``); on the CPU the kernel's wrapper takes its
@@ -47,16 +51,18 @@ def prompt_tokens(cfg, batch: int, prompt_len: int, seed: int = 0):
 
 
 def grow_cache(cache, cfg, smax: int):
-    """The prefill's cache copied into zeroed caches of ``smax``
-    positions, for the decode steps to fill."""
-    grown = []
-    for kv in cache["blocks"]:
-        _, b, s = kv.shape[:3]
-        (shape, dtype), _ = T.cache_shapes(cfg, b, smax)["blocks"]
-        full = torch.zeros(shape, dtype=dtype, device=kv.device)
-        full[:, :, :s] = kv
-        grown.append(full)
-    return {"blocks": tuple(grown)}
+    """The prefill's cache, every group of it, copied into zeroed caches
+    of ``smax`` positions, for the decode steps to fill."""
+    grown = {}
+    for name, kvs in cache.items():
+        _, b, s = kvs[0].shape[:3]
+        (shape, dtype), _ = T.cache_shapes(cfg, b, smax)[name]
+        full = []
+        for kv in kvs:
+            full.append(torch.zeros(shape, dtype=dtype, device=kv.device))
+            full[-1][:, :, :s] = kv
+        grown[name] = tuple(full)
+    return grown
 
 
 def _sync(dev):

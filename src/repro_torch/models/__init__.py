@@ -1,6 +1,6 @@
 """Model facade: config -> parameters for the families the port runs.
-Only the dense LM path is ported; the recsys and GNN families come with
-later slices, and ``build_loss`` with training (ROADMAP.md, Queue 1,
+The LM family is ported, dense and MoE; the recsys and GNN families come
+with later slices, and ``build_loss`` with training (ROADMAP.md, Queue 1,
 item 12)."""
 from __future__ import annotations
 

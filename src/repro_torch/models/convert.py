@@ -3,11 +3,14 @@
 ``state_dict_from_jax`` turns the JAX parameter tree of ``lm_def`` (numpy
 arrays; each block parameter stacked along a leading layer axis, as
 ``transformer.stack_defs`` makes it) into the state dict of
-``transformer.LM``: it unstacks the layers and transposes each dense
-weight from JAX's [in, out] to ``nn.Linear``'s [out, in]. It raises on a
-leaf it does not consume and on one it lacks. ``config_from_jax`` copies
-an ``LMConfig``'s fields and maps ``attention_impl`` "xla" / "pallas" to
-"torch" / "cuda".
+``transformer.LM``: it unstacks the layers of each block group
+(``blocks``, or ``dense_blocks`` and ``moe_blocks``) and transposes each
+dense weight from JAX's [in, out] to ``nn.Linear``'s [out, in]. The
+stacked expert weights are [E, in, out] on both sides and are not
+transposed. It raises on a leaf it does not consume (``moe_def`` gives the
+shared gate no bias, and neither does the port) and on one it lacks.
+``config_from_jax`` copies an ``LMConfig``'s fields and maps
+``attention_impl`` "xla" / "pallas" to "torch" / "cuda".
 """
 from __future__ import annotations
 
@@ -20,16 +23,43 @@ from repro_torch.configs.base import LMConfig, MoECfg
 
 ATTENTION_IMPL = {"xla": "torch", "pallas": "cuda"}
 
-#: JAX leaf of a block (below "blocks/") -> the port's parameter, and
-#: whether it is a dense weight to transpose
-_BLOCK_LEAVES = {
-    "ln1/scale": ("ln1.scale", False),
-    "ln2/scale": ("ln2.scale", False),
-    **{f"attn/{p}/w": (f"attn.{p}.weight", True) for p in "qkvo"},
-    **{f"attn/{p}/b": (f"attn.{p}.bias", False) for p in "qkv"},
-    **{f"ffn/{p}/w": (f"ffn.{p}.weight", True)
-       for p in ("gate", "up", "down")},
-}
+_FFN = ("gate", "up", "down")
+
+
+def _block_leaves(cfg, moe_layer: bool) -> dict[str, tuple[str, bool]]:
+    """JAX leaf of a block (below its group) -> the port's parameter, and
+    whether it is a dense weight to transpose."""
+    leaves = {
+        "ln1/scale": ("ln1.scale", False),
+        "ln2/scale": ("ln2.scale", False),
+        **{f"attn/{p}/w": (f"attn.{p}.weight", True) for p in "qkvo"},
+    }
+    if cfg.qkv_bias:
+        leaves.update({f"attn/{p}/b": (f"attn.{p}.bias", False)
+                       for p in "qkv"})
+    if not moe_layer:
+        leaves.update({f"ffn/{p}/w": (f"ffn.{p}.weight", True) for p in _FFN})
+        return leaves
+    md = cfg.moe
+    leaves["ffn/router/w"] = ("ffn.router.weight", True)
+    # [E, in, out] in both layouts (``moe.Experts``): no transpose
+    leaves.update({f"ffn/experts/{p}": (f"ffn.experts.{p}", False)
+                   for p in _FFN})
+    if md.n_shared:
+        leaves.update({f"ffn/shared/{p}/w": (f"ffn.shared.{p}.weight", True)
+                       for p in _FFN})
+        if md.shared_gate:
+            leaves["ffn/shared_gate/w"] = ("ffn.shared_gate.weight", True)
+    return leaves
+
+
+def _groups(cfg) -> list[tuple[str, int, bool]]:
+    """(group, layers, moe_layer) of ``cfg``'s block groups."""
+    if cfg.moe is None:
+        return [("blocks", cfg.n_layers, False)]
+    fd = cfg.moe.first_dense
+    return ([("dense_blocks", fd, False)] if fd else []) + [
+        ("moe_blocks", cfg.n_layers - fd, True)]
 
 
 def flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -67,18 +97,17 @@ def state_dict_from_jax(params, cfg) -> dict[str, torch.Tensor]:
         return flat[key]
 
     out["embed"] = torch.from_numpy(take("embed").copy())
-    for leaf, (name, transpose) in _BLOCK_LEAVES.items():
-        key = f"blocks/{leaf}"
-        if key not in flat and leaf.endswith("/b") and not cfg.qkv_bias:
-            continue
-        stacked = take(key)
-        if stacked.shape[0] != cfg.n_layers:
-            raise ValueError(f"{key}: {stacked.shape[0]} layers stacked, "
-                             f"the config has {cfg.n_layers}")
-        for i in range(cfg.n_layers):
-            w = stacked[i].T if transpose else stacked[i]
-            out[f"blocks.{i}.{name}"] = torch.from_numpy(
-                np.ascontiguousarray(w))
+    for group, n_layers, moe_layer in _groups(cfg):
+        for leaf, (name, transpose) in _block_leaves(cfg, moe_layer).items():
+            key = f"{group}/{leaf}"
+            stacked = take(key)
+            if stacked.shape[0] != n_layers:
+                raise ValueError(f"{key}: {stacked.shape[0]} layers stacked, "
+                                 f"the config has {n_layers}")
+            for i in range(n_layers):
+                w = stacked[i].T if transpose else stacked[i]
+                out[f"{group}.{i}.{name}"] = torch.from_numpy(
+                    np.ascontiguousarray(w))
     out["final_norm.scale"] = torch.from_numpy(take("final_norm/scale").copy())
     if not cfg.tie_embeddings:
         out["lm_head.weight"] = torch.from_numpy(

@@ -1,14 +1,16 @@
-"""Decoder-only LM (Qwen2 family), dense path: GQA + RoPE + SwiGLU, with
-the entry points ``forward``, ``prefill`` and ``decode_step`` (the port of
-the JAX package's ``models/transformer.py``).
+"""Decoder-only LM (Qwen2 and DeepSeek families): GQA + RoPE + SwiGLU,
+with MoE layers, and the entry points ``forward``, ``prefill`` and
+``decode_step`` (the port of the JAX package's ``models/transformer.py``).
 
 The JAX package stacks each parameter along a leading layer axis and runs
 the layers under ``lax.scan`` with ``jax.checkpoint`` (``remat``), and
 pins activation shardings with ``constrain`` (``act_sharding.py``). Those
 are compilation and sharding devices with no role on one eager device, so
-they are not ported: here the layers are a ``ModuleList`` run by a Python
-loop. The KV cache keeps the JAX layout, (k, v) each [L, B, S, Hkv, D].
-MoE layers come with the MoE slice (ROADMAP.md, Queue 1, item 12b).
+they are not ported: here the layers are ``ModuleList``s run by a Python
+loop. The layer groups and the cache keys are JAX's: a dense model has
+``blocks``; an MoE model has ``dense_blocks`` (its ``first_dense``
+leading dense layers, if any) and ``moe_blocks``. Each cache group keeps
+the JAX layout, (k, v) each [L, B, S, Hkv, D].
 """
 from __future__ import annotations
 
@@ -21,38 +23,50 @@ from repro_torch.models.attention import (
     self_attention,
 )
 from repro_torch.models.layers import MLP, Dense, RMSNorm, rmsnorm
+from repro_torch.models.moe import MoE, moe_apply
 from repro_torch.models.param import embed_init, generator
 
 
-def _dense_only(cfg):
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            "MoE layers are not ported yet (ROADMAP.md, Queue 1, item 12b)")
-
-
 class Block(nn.Module):
-    def __init__(self, cfg, device=None, gen=None):
+    """Attention and an FFN: an MoE layer (``moe_layer``) or a SwiGLU MLP
+    of width ``d_ff`` (``cfg.d_ff`` by default)."""
+
+    def __init__(self, cfg, moe_layer: bool = False, d_ff: int | None = None,
+                 device=None, gen=None):
         super().__init__()
         self.ln1 = RMSNorm(cfg.d_model, device=device)
         self.attn = Attention(cfg, device=device, gen=gen)
         self.ln2 = RMSNorm(cfg.d_model, device=device)
-        self.ffn = MLP(cfg.d_model, cfg.d_ff, device=device, gen=gen)
+        self.moe_layer = moe_layer
+        self.ffn = (MoE(cfg, cfg.moe, device=device, gen=gen) if moe_layer
+                    else MLP(cfg.d_model, d_ff or cfg.d_ff, device=device,
+                             gen=gen))
 
 
 class LM(nn.Module):
-    """The parameters of ``lm_def``: ``embed`` [V, d], ``blocks``,
-    ``final_norm`` and, without tied embeddings, ``lm_head``. All float32,
-    drawn from ``seed`` on ``device`` (``models.param``)."""
+    """The parameters of ``lm_def``: ``embed`` [V, d], the block groups
+    (``blocks``, or ``dense_blocks`` and ``moe_blocks``), ``final_norm``
+    and, without tied embeddings, ``lm_head``. All float32, drawn from
+    ``seed`` on ``device`` (``models.param``)."""
 
     def __init__(self, cfg, device=None, seed: int = 0):
         super().__init__()
-        _dense_only(cfg)
         self.cfg = cfg
         gen = generator(seed, device or "cpu")
         self.embed = nn.Parameter(embed_init(
             torch.empty(cfg.vocab, cfg.d_model, device=device), gen, 0.02))
-        self.blocks = nn.ModuleList(Block(cfg, device=device, gen=gen)
-                                    for _ in range(cfg.n_layers))
+        md = cfg.moe
+        if md is None:
+            self.blocks = nn.ModuleList(Block(cfg, device=device, gen=gen)
+                                        for _ in range(cfg.n_layers))
+        else:
+            if md.first_dense:
+                self.dense_blocks = nn.ModuleList(
+                    Block(cfg, d_ff=md.d_ff_dense or cfg.d_ff, device=device,
+                          gen=gen) for _ in range(md.first_dense))
+            self.moe_blocks = nn.ModuleList(
+                Block(cfg, moe_layer=True, device=device, gen=gen)
+                for _ in range(cfg.n_layers - md.first_dense))
         self.final_norm = RMSNorm(cfg.d_model, device=device)
         self.lm_head = (None if cfg.tie_embeddings else
                         Dense(cfg.d_model, cfg.vocab, device=device, gen=gen))
@@ -67,33 +81,58 @@ def _head(params: LM, x, cfg):
     return params.lm_head(x).float()
 
 
+def _block_groups(params: LM, cfg):
+    """[(cache key, blocks)] in the order the layers run."""
+    if cfg.moe is None:
+        return [("blocks", params.blocks)]
+    groups = [("dense_blocks", params.dense_blocks)] \
+        if cfg.moe.first_dense else []
+    return groups + [("moe_blocks", params.moe_blocks)]
+
+
+def _ffn(bp: Block, x, cfg):
+    """(the block's FFN of x, its aux loss or None)."""
+    if bp.moe_layer:
+        return moe_apply(bp.ffn, x, cfg, cfg.moe)
+    return bp.ffn(x), None
+
+
 def _trunk(params: LM, tokens, cfg, collect_cache: bool):
-    """Embedding and blocks: (hidden [B, S, d], cache or None)."""
-    _dense_only(cfg)
+    """Embedding and blocks: (hidden [B, S, d], summed aux loss, cache or
+    None)."""
     dtype = getattr(torch, cfg.dtype)
     b, s = tokens.shape
     x = params.embed[tokens].to(dtype)
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
-    ks, vs = [], []
-    for bp in params.blocks:
-        h, (k, v) = self_attention(bp.attn, bp.ln1(x), positions, cfg)
-        x = x + h
-        x = x + bp.ffn(bp.ln2(x))
+    aux = torch.zeros((), device=x.device)
+    cache = {}
+    for name, blocks in _block_groups(params, cfg):
+        group_aux = torch.zeros((), device=x.device)
+        ks, vs = [], []
+        for bp in blocks:
+            h, (k, v) = self_attention(bp.attn, bp.ln1(x), positions, cfg)
+            x = x + h
+            f, a = _ffn(bp, bp.ln2(x), cfg)
+            x = x + f
+            if a is not None:
+                group_aux = group_aux + a
+            if collect_cache:
+                ks.append(k)
+                vs.append(v)
+        aux = aux + group_aux
         if collect_cache:
-            ks.append(k)
-            vs.append(v)
-    cache = {"blocks": (torch.stack(ks), torch.stack(vs))} \
-        if collect_cache else None
-    return x, cache
+            cache[name] = (torch.stack(ks), torch.stack(vs))
+    return x, aux, (cache if collect_cache else None)
 
 
 @torch.no_grad()
 def forward(params: LM, tokens, cfg, collect_cache: bool = False):
     """tokens [B, S] -> (logits [B, S, V] float32, aux_loss, cache dict or
-    None). The dense path has no auxiliary loss (0.0)."""
-    x, cache = _trunk(params, tokens, cfg, collect_cache)
-    return _head(params, x, cfg), torch.zeros((), device=x.device), cache
+    None). The aux loss is the sum over the MoE layers (0.0 for a dense
+    model and for the AWPM router)."""
+    x, aux, cache = _trunk(params, tokens, cfg, collect_cache)
+    return _head(params, x, cfg), aux, cache
 
 
 @torch.no_grad()
@@ -102,30 +141,39 @@ def prefill(params: LM, tokens, cfg):
     applied to the last position only: the JAX package computes the logits
     of every position and keeps the last row, which is the same row (at
     B = 4, S = 2048 on qwen2-0.5b the full logits take 5 GB)."""
-    x, cache = _trunk(params, tokens, cfg, collect_cache=True)
+    x, _, cache = _trunk(params, tokens, cfg, collect_cache=True)
     return _head(params, x[:, -1:], cfg)[:, 0], cache
 
 
 @torch.no_grad()
 def decode_step(params: LM, cache, token, pos: int, cfg):
-    """One decode step. cache: {"blocks": (k, v)}, each [L, B, S_max, Hkv,
+    """One decode step. cache: {group: (k, v)}, each [L, B, S_max, Hkv,
     D], written at ``pos`` in place; token [B, 1] int; ``pos`` the current
     length. Returns (logits [B, V] float32, cache)."""
-    _dense_only(cfg)
     dtype = getattr(torch, cfg.dtype)
     x = params.embed[token].to(dtype)
-    kc, vc = cache["blocks"]
-    for i, bp in enumerate(params.blocks):
-        h, _, _ = decode_attention(bp.attn, bp.ln1(x), kc[i], vc[i], pos,
-                                   cfg)
-        x = x + h
-        x = x + bp.ffn(bp.ln2(x))
+    for name, blocks in _block_groups(params, cfg):
+        kc, vc = cache[name]
+        for i, bp in enumerate(blocks):
+            h, _, _ = decode_attention(bp.attn, bp.ln1(x), kc[i], vc[i], pos,
+                                       cfg)
+            x = x + h
+            x = x + _ffn(bp, bp.ln2(x), cfg)[0]
     return _head(params, x, cfg)[:, 0], cache
 
 
 def cache_shapes(cfg, batch: int, seq: int):
-    """{"blocks": ((shape, dtype), (shape, dtype))} of a decode cache."""
-    _dense_only(cfg)
-    shp = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.hd)
+    """{group: ((shape, dtype), (shape, dtype))} of a decode cache."""
     dt = getattr(torch, cfg.dtype)
-    return {"blocks": ((shp, dt), (shp, dt))}
+
+    def kv(n_layers):
+        shp = (n_layers, batch, seq, cfg.n_kv_heads, cfg.hd)
+        return ((shp, dt), (shp, dt))
+
+    if cfg.moe is None:
+        return {"blocks": kv(cfg.n_layers)}
+    out = {}
+    if cfg.moe.first_dense:
+        out["dense_blocks"] = kv(cfg.moe.first_dense)
+    out["moe_blocks"] = kv(cfg.n_layers - cfg.moe.first_dense)
+    return out

@@ -295,16 +295,20 @@ def test_convert_refuses_an_unconsumed_leaf(ref):
 
 
 def test_config_refusals():
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        get_config("qwen2-moe-a2.7b")
+    with pytest.raises(NotImplementedError, match="item 12d"):
+        get_config("qwen2-7b")
+    with pytest.raises(NotImplementedError, match="item 12e"):
+        get_config("bert4rec")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-9")
     with pytest.raises(ValueError, match="attention_impl"):
         LMConfig("x", 1, 8, 2, 1, 16, 32, attention_impl="pallas")
+    # the MoE path is ported: an MoE config builds MoE blocks
     moe = dataclasses.replace(get_config("qwen2-0.5b", reduced=True),
                               moe=MoECfg(n_experts=4, top_k=2, d_ff_expert=8))
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        build_defs(moe, device="cpu")
+    model = build_defs(moe, device="cpu")
+    assert len(model.moe_blocks) == moe.n_layers
+    assert not hasattr(model, "blocks")
 
 
 def test_serve_lm_without_a_device_needs_the_card():
