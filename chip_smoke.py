@@ -5,8 +5,10 @@ Builds the hand-written CUDA kernels from this checkout, drives the port's
 paths — ``solve()`` at the size a sparse direct solver hands to its
 matching step, and LM serving (``serve_lm``) on qwen2-0.5b and on the MoE
 model qwen2-moe-a2.7b with the AWPM router, both at full width and depth —
-holds each kernel against its plain torch version on the card, and prints
-what it measured:
+then bert4rec serving (``serve_recsys``) at its published size and the
+recsys EmbeddingBag and the dense cycle-gain tile through their public
+entries, holds each kernel against its plain torch version on the card,
+and prints what it measured:
 
   1. build the kernels (``nvcc``, sm_90a); print the build time and the
      card's name and power limit;
@@ -37,7 +39,29 @@ what it measured:
      S), timed beside its bound, its plain version and
      ``torch.nn.functional.scaled_dot_product_attention``; the same at
      qwen2-moe-a2.7b's head shape, q/k/v [4, 16, 2048, 128] bf16 causal;
-  8. [moe] qwen2-moe-a2.7b with the AWPM router (24 layers, d_model 2048,
+  8. [recsys] bert4rec (embed_dim 64, 2 blocks, 2 heads, seq_len 200, a
+     table of 1,000,448 items; float32 weights drawn from seed 0 on the
+     card): ``serve_recsys`` at the ``serve_p99`` batch (512), the median
+     ms per batch over 10 calls after a warm-up, and the retrieval of one
+     user against 1,000,000 candidates; the first 8 sequences' scores and
+     the retrieval against the same weights on the CPU; one
+     ``serve_scores`` call under ``torch.profiler``; the smoke-size model
+     on the card against the CPU. ``serve_bulk`` (batch 262,144) is not
+     served: its logits would take 1.05 TB;
+  9. [embedding_bag] the EmbeddingBag kernel (K6) through
+     ``models.recsys.embedding.embedding_bag(use_kernel=True)`` on the
+     served model's own item table: the ``serve_p99`` batch's sequences
+     and a ``serve_bulk``-sized set (262,144 bags of 200) as bags, 10% of
+     the entries padding, against its plain version within 1e-5, with
+     bags of padding only and an index V; timed beside its bound, its
+     plain version and ``torch.nn.functional.embedding_bag``;
+ 10. [cycle_gain] the dense cycle-gain kernel (K3) through
+     ``cycle_gain_padded`` bit for bit against its plain version on
+     ``bench_kernels.py``'s 512 x 512 tile, a 16,384 x 16,384 pair at
+     density 0.3, a tie-heavy and an all-absent case; through
+     ``swap_gains`` at the MoE prefill's group size (T 2,100, E 60);
+     timed beside its bound and its plain version;
+ 11. [moe] qwen2-moe-a2.7b with the AWPM router (24 layers, d_model 2048,
      60 experts top-4 and 4 shared, float32 weights drawn from seed 0 on
      the card, bf16 activations): ``serve_lm`` with batch 4, a 2,048-token
      prompt and 8 greedy decode steps; one prefill counted alone, which
@@ -48,7 +72,7 @@ what it measured:
      on the same weights; one prefill and one decode step under
      ``torch.profiler``; the smoke-size MoE model (float32) on the card
      against the CPU;
-  9. [router_swap] K4 against its plain version, bit for bit, on layer 0's
+ 12. [router_swap] K4 against its plain version, bit for bit, on layer 0's
      captured router input at the prefill shape (G = 4, T = 2,100, E = 60)
      and at the decode shape (G = 1, T = 60), and on a random (300, 60)
      case; timed beside its bound and its plain version.
@@ -82,6 +106,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import recsys_shape  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     MIN_GAIN,
     MatchingProblem,
@@ -97,10 +122,17 @@ from repro_torch.kernels.cycle_gain.awac_sweep import (  # noqa: E402
     awac_sweep_batched,
     awac_sweep_plain,
 )
+from repro_torch.kernels.cycle_gain.cycle_gain import cycle_gain  # noqa: E402
+from repro_torch.kernels.cycle_gain.ops import (  # noqa: E402
+    cycle_gain_padded,
+    swap_gains,
+)
 from repro_torch.kernels.cycle_gain.persistent import (  # noqa: E402
     awac_persistent_batched,
     awac_persistent_plain,
 )
+from repro_torch.kernels.cycle_gain.ref import cycle_gain_plain  # noqa: E402
+from repro_torch.kernels.embedding_bag import embedding_bag_plain  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_plain,
     flash_attention,
@@ -114,12 +146,15 @@ from repro_torch.kernels.router_swap.ops import pad_for_kernel  # noqa: E402
 from repro_torch.launch.serve import (  # noqa: E402
     grow_cache,
     prompt_tokens,
+    recsys_requests,
     serve_lm,
+    serve_recsys,
 )
 from repro_torch.models import build_defs  # noqa: E402
 from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.param import count_params  # noqa: E402
+from repro_torch.models.recsys import embedding  # noqa: E402
 from repro_torch.sparse.csr import (  # noqa: E402
     batched_row_ptr_from_sorted,
     row_ptr_from_sorted,
@@ -133,6 +168,20 @@ QWEN2_0_5B_PARAMS = 494_032_768  # count_params(build_defs(cfg)) in JAX
 MOE = dict(batch=4, prompt_len=2048, decode_steps=8, seed=0)
 QWEN2_MOE_PARAMS = 14_315_784_192  # count_params(build_defs(cfg)) in JAX
 MOE_CHECK_LAYERS = (0, 11, 23)
+BERT4REC_PARAMS = 65_142_016  # count_params(build_defs(cfg)) in JAX
+RECSYS = dict(reps=10, seed=0, check_rows=8, top=10)
+# card against CPU, bert4rec scores: atol as a share of the largest |score|
+RECSYS_TOL = 1e-4
+# EmbeddingBag: the bags' padding share, the bulk check's chunk of bags
+# and the kernel's tolerance against its plain version
+# (tests/test_kernels.py:111)
+BAGS = dict(pad=0.1, chunk=16_384, tol=1e-5, seed=3)
+# dense cycle-gain tiles: (name, M, N, kind)
+TILES = (("bench_kernels 512x512 d0.3", 512, 512, "bench"),
+         ("16384x16384 d0.3", 16_384, 16_384, "dense"),
+         ("ties 4096x4096", 4096, 4096, "ties"),
+         ("absent 1000x3000", 1000, 3000, "absent"))
+SWAP = dict(t=2100, e=60, seed=4)  # the MoE prefill's routing group
 # the smoke-size model on the card against the CPU, float32
 SMOKE_TOL = 1e-4
 # kernel path against plain attention, last-position logits: atol as a
@@ -750,6 +799,342 @@ def free_card() -> None:
     torch.cuda.empty_cache()
 
 
+def phase_recsys(log):
+    """bert4rec serving at its published size: ``serve_recsys`` at the
+    ``serve_p99`` batch and the ``retrieval_cand`` candidate set; the
+    card against the CPU on the same weights. Returns the model and the
+    served sequences, for ``phase_embedding_bag``."""
+    cfg = get_config("bert4rec")
+    dev = torch.device("cuda")
+    batch = recsys_shape("serve_p99").d("batch")
+    n_cand = recsys_shape("retrieval_cand").d("n_candidates")
+    bulk = recsys_shape("serve_bulk").d("batch")
+    torch.cuda.reset_peak_memory_stats()
+    model, t_init = wall(lambda: build_defs(cfg, device=dev,
+                                            seed=RECSYS["seed"]))
+    n_params = count_params(model)
+    require(n_params == BERT4REC_PARAMS,
+            f"bert4rec has {n_params} parameters, not {BERT4REC_PARAMS}")
+    print(f"[recsys] bert4rec: {n_params} float32 parameters "
+          f"({n_params * 4 / 1e6:.1f} MB) drawn in {t_init:.2f} s; item "
+          f"table {tuple(model.items.shape)}")
+    serve_recsys(cfg, batch, device=dev, model=model)  # warm-up: cuBLAS
+
+    # the main path, as a user calls it; the counts are read right after
+    backend.reset_launch_counts()
+    serve_times, retrieval_times = [], []
+    for _ in range(RECSYS["reps"]):
+        out = None  # the previous call's 2.05 GB of logits go first
+        out = serve_recsys(cfg, batch, device=dev, model=model,
+                           seed=RECSYS["seed"])
+        serve_times.append(out.serve_ms)
+        retrieval_times.append(out.retrieval_ms)
+    counts = backend.launch_counts()
+    serve_ms = statistics.median(serve_times)
+    retrieval_ms = statistics.median(retrieval_times)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(tuple(out.scores.shape) == (batch, cfg.padded_items)
+            and bool(torch.isfinite(out.scores).all()),
+            f"[recsys] scores {tuple(out.scores.shape)} or not finite")
+    require(tuple(out.retrieval.shape) == (1, n_cand)
+            and bool(torch.isfinite(out.retrieval).all()),
+            f"[recsys] retrieval {tuple(out.retrieval.shape)} or not finite")
+    require(bool((out.top_items >= 0).all())
+            and bool((out.top_items < cfg.padded_items).all()),
+            "[recsys] top items outside the table")
+    print(f"[recsys] serve_p99: batch {batch}, seq {cfg.seq_len}, scores "
+          f"{tuple(out.scores.shape)} float32: {serve_ms:.3f} ms per batch "
+          f"(median of {RECSYS['reps']}: "
+          f"{[round(t, 3) for t in serve_times]}); retrieval_cand: 1 user "
+          f"x {n_cand} candidates {retrieval_ms:.3f} ms (median); peak "
+          f"memory {peak_gb:.2f} GB; kernel launches on this path {counts} "
+          "(the attention is plain torch, as it is plain jnp in JAX)")
+    print(f"[recsys] serve_bulk (batch {bulk}) is not served: its logits "
+          f"would take {bulk} x {cfg.padded_items} float32 = "
+          f"{bulk * cfg.padded_items * 4 / 1e12:.2f} TB; its EmbeddingBag "
+          "shape runs in [embedding_bag]")
+
+    # the card against the CPU on the same weights
+    rows = RECSYS["check_rows"]
+    seqs, cands = recsys_requests(cfg, batch, seed=RECSYS["seed"])
+    m_cpu = copy.deepcopy(model).to("cpu")
+    want = m_cpu.serve_scores(seqs[:rows])
+    got = out.scores[:rows].cpu()
+    r_want = m_cpu.retrieval_scores(seqs[:1], cands)
+    r_got = out.retrieval.cpu()
+    del m_cpu
+    errs = {}
+    for what, g, w in (("serve", got, want), ("retrieval", r_got, r_want)):
+        err = float((g - w).abs().max())
+        top = float(w.abs().max())
+        k = RECSYS["top"]
+        same = torch.equal(
+            torch.argsort(g, dim=-1, descending=True, stable=True)[:, :k],
+            torch.argsort(w, dim=-1, descending=True, stable=True)[:, :k])
+        require(err <= RECSYS_TOL * top and same,
+                f"[recsys] {what}: card and CPU differ by {err} (largest "
+                f"|score| {top}); top-{k} ids equal: {same}")
+        errs[what] = dict(max_abs_diff=err, largest=top)
+        print(f"[recsys] {what}, card against CPU on the same weights "
+              f"({g.shape[0]} rows x {g.shape[1]}): max abs diff {err!r} "
+              f"(largest |score| {top!r}, tolerance {RECSYS_TOL * top!r}); "
+              f"top-{k} ids equal")
+
+    # where the time goes: one serve_scores call
+    seqs_dev = seqs.to(dev)
+    log["recsys_profile"] = profiled(lambda: model.serve_scores(seqs_dev),
+                                     "[recsys] serve_scores, batch 512")
+
+    # the smoke-size model on the card against the CPU
+    small = get_config("bert4rec", reduced=True)
+    s_cpu = build_defs(small, device="cpu", seed=0)
+    r_gpu = serve_recsys(small, 8, device=dev,
+                         model=copy.deepcopy(s_cpu).to(dev))
+    r_cpu = serve_recsys(small, 8, device="cpu", model=s_cpu)
+    same = (torch.equal(r_gpu.top_items.cpu(), r_cpu.top_items)
+            and torch.equal(r_gpu.retrieval_top.cpu(), r_cpu.retrieval_top))
+    small_diff = float((r_gpu.scores.cpu() - r_cpu.scores).abs().max())
+    require(same and small_diff <= SMOKE_TOL,
+            f"[recsys] smoke model: card and CPU differ (ids equal: {same}, "
+            f"scores {small_diff})")
+    print(f"[recsys] bert4rec-smoke: card == CPU top items and top-5 "
+          f"candidates, scores max abs diff {small_diff!r}")
+    log["recsys"] = dict(params=n_params, batch=batch, serve_ms=serve_ms,
+                         serve_ms_all=serve_times,
+                         retrieval_ms=retrieval_ms, n_candidates=n_cand,
+                         peak_gb=peak_gb, launches=counts, card_vs_cpu=errs,
+                         smoke_diff=small_diff,
+                         top_items=out.top_items[:8].tolist())
+    return model, seqs
+
+
+def bag_bytes(idx, d: int, v: int) -> tuple[float, float, float]:
+    """(bytes, float32 operations, gathered bytes) of one EmbeddingBag on
+    these bags: idx and w read once, out written once, and the rows the
+    non-padding entries gather, at most the whole table once; two
+    operations per gathered float."""
+    b, l = idx.shape
+    entries = float((idx >= 0).sum())
+    gathered = entries * d * 4
+    return (8.0 * b * l + 4.0 * b * d + min(gathered, 4.0 * v * d),
+            2.0 * entries * d, gathered)
+
+
+def padded_bags(idx, gen, pad: float):
+    """idx with a ``pad`` share of its entries set to -1, and uniform(0, 1)
+    weights."""
+    idx = torch.where(torch.rand(idx.shape, generator=gen,
+                                 device=idx.device) < pad, -1, idx)
+    return idx.to(torch.int32), torch.rand(idx.shape, generator=gen,
+                                           device=idx.device)
+
+
+def phase_embedding_bag(log, kernels, model, seqs):
+    """K6 through the recsys layer's ``embedding_bag(use_kernel=True)`` on
+    the served model's own item table."""
+    dev = torch.device("cuda")
+    table = model.items.detach()
+    v, d = table.shape
+    cfg = model.cfg
+    gen = torch.Generator(device=dev).manual_seed(BAGS["seed"])
+    bulk = recsys_shape("serve_bulk").d("batch")
+    p99 = padded_bags(seqs.to(dev), gen, BAGS["pad"])
+    big = padded_bags(torch.randint(0, cfg.n_items, (bulk, cfg.seq_len),
+                                    generator=gen, device=dev), gen,
+                      BAGS["pad"])
+
+    # the path, as a user calls it; the counts are read right after
+    backend.reset_launch_counts()
+    out_p99 = embedding.embedding_bag(table, *p99, use_kernel=True)
+    out_big = embedding.embedding_bag(table, *big, use_kernel=True)
+    counts = backend.launch_counts()
+    require(counts["embedding_bag"] == 2,
+            f"[embedding_bag] {counts['embedding_bag']} kernel launches for "
+            f"two calls: {counts}")
+    kernels["embedding_bag"]["launches"] = counts["embedding_bag"]
+    sync()
+
+    tol = BAGS["tol"]
+    k6 = kernels["embedding_bag"]
+    k6["max_abs_err"] = 0.0
+
+    def hold(got, idx, w, what):
+        want = embedding_bag_plain(idx, w, table)
+        err = float((got - want).abs().max())
+        require(torch.allclose(got, want, rtol=tol, atol=tol),
+                f"[embedding_bag] {what}: kernel differs from plain by {err}")
+        k6["max_abs_err"] = max(k6["max_abs_err"], err)
+
+    hold(out_p99, *p99, "serve_p99 bags")
+    for c in range(0, bulk, BAGS["chunk"]):
+        sl = slice(c, c + BAGS["chunk"])
+        hold(out_big[sl], big[0][sl], big[1][sl], f"bulk bags {c}..")
+    # bags of padding only, and an index V (clipped to row V - 1)
+    idx, w = (x[:64].clone() for x in p99)
+    idx[3], idx[10] = -1, -1
+    idx[5, 7], idx[6, 0] = v, v
+    got = embedding.embedding_bag(table, idx, w, use_kernel=True)
+    sync()
+    hold(got, idx, w, "padding-only bags and index V")
+    require(bool((got[[3, 10]] == 0).all()),
+            "[embedding_bag] a bag of padding only is not exactly 0")
+    print(f"[embedding_bag] table {tuple(table.shape)}: serve_p99 bags "
+          f"{tuple(p99[0].shape)} and bulk bags {tuple(big[0].shape)} (10% "
+          f"padding): kernel == plain within {tol} (max abs err "
+          f"{k6['max_abs_err']!r}); padding-only bags exactly 0; index V "
+          f"reads row V - 1")
+
+    # timed, with the library call as a yardstick: -1 mapped to row 0 at
+    # weight 0, prepared outside the timed call
+    rows = []
+    for what, (idx, w) in (("serve_p99", p99), ("serve_bulk", big)):
+        lib_idx = idx.clamp(0, v - 1)
+        lib_w = torch.where(idx >= 0, w, 0.0)
+        lib = torch.nn.functional.embedding_bag(
+            lib_idx, table, mode="sum", per_sample_weights=lib_w)
+        require(torch.allclose(lib, embedding_bag_plain(idx, w, table),
+                               rtol=tol, atol=tol),
+                f"[embedding_bag] {what}: the library call disagrees")
+        del lib
+        row = dict(shape=tuple(idx.shape), ms=event_ms(
+            lambda: embedding.embedding_bag(table, idx, w, use_kernel=True),
+            21))
+        row["plain_ms"] = event_ms(lambda: embedding_bag_plain(idx, w, table),
+                                   3)
+        row["library_ms"] = event_ms(
+            lambda: torch.nn.functional.embedding_bag(
+                lib_idx, table, mode="sum", per_sample_weights=lib_w), 21)
+        nbytes, ops, gathered = bag_bytes(idx, d, v)
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops)
+        row["gathered_gb"] = gathered / 1e9
+        row["gathered_bound_ms"] = (nbytes - min(gathered, 4.0 * v * d)
+                                    + gathered) / HBM_BYTES_PER_S * 1e3
+        rows.append(row)
+        print(f"[embedding_bag] {what} {row['shape']}: kernel "
+              f"{row['ms']:.4f} ms (median of 21), plain "
+              f"{row['plain_ms']:.3f} ms (median of 3), "
+              f"F.embedding_bag {row['library_ms']:.4f} ms (median of 21); "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, the table "
+              f"read at most once); gathered rows {row['gathered_gb']:.3f} "
+              f"GB, {row['gathered_bound_ms']:.4f} ms if every gathered row "
+              "came from device memory")
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"):
+        k6[key] = rows[-1][key]
+    log["embedding_bag"] = dict(rows=rows, max_abs_err=k6["max_abs_err"])
+
+
+def tile_inputs(kind: str, m: int, n: int, gen):
+    """(a, a2, u, v) of a dense cycle-gain tile on the card."""
+    dev = torch.device("cuda")
+    if kind == "bench":  # benchmarks/bench_kernels.py's draw
+        rng = np.random.default_rng(0)
+        a = rng.uniform(0.1, 1, (m, n)) * (rng.random((m, n)) < 0.3)
+        a2 = rng.uniform(0.1, 1, (m, n)) * (rng.random((m, n)) < 0.3)
+        u, v = rng.uniform(0, 1, m), rng.uniform(0, 1, n)
+        return tuple(torch.from_numpy(x.astype(np.float32)).to(dev)
+                     for x in (a, a2, u, v))
+    if kind == "absent":
+        return (torch.zeros((m, n), device=dev),
+                torch.zeros((m, n), device=dev), torch.zeros(m, device=dev),
+                torch.zeros(n, device=dev))
+    if kind == "ties":  # small integers: most columns tie
+        a, a2 = (torch.randint(0, 4, (m, n), generator=gen, device=dev)
+                 .float() for _ in range(2))
+        u, v = (torch.randint(0, 3, (k,), generator=gen, device=dev).float()
+                for k in (m, n))
+        return a, a2, u, v
+    out = []
+    for _ in range(2):  # uniform(0.1, 1) at density 0.3
+        a = torch.rand((m, n), generator=gen, device=dev).mul_(0.9).add_(0.1)
+        a.mul_(torch.rand((m, n), generator=gen, device=dev) < 0.3)
+        out.append(a)
+    return (*out, torch.rand(m, generator=gen, device=dev),
+            torch.rand(n, generator=gen, device=dev))
+
+
+def tile_bytes(m: int, n: int) -> tuple[float, float]:
+    """Bytes and float32 operations of one dense cycle-gain tile: A, A2, u
+    and v read once, gain and row written once; three operations per
+    entry."""
+    return 8.0 * m * n + 4.0 * (m + n) + 8.0 * n, 3.0 * m * n
+
+
+def phase_cycle_gain(log, kernels):
+    """K3 through ``cycle_gain_padded`` and ``swap_gains``, bit for bit
+    against its plain version, and timed."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SWAP["seed"])
+    tiles = [(name, tile_inputs(kind, m, n, gen)) for name, m, n, kind
+             in TILES]
+    t, e = SWAP["t"], SWAP["e"]
+    aff = torch.randn((t, e), generator=gen, device=dev)
+    assign = torch.randint(0, e, (t,), generator=gen, device=dev)
+    tok = torch.gather(aff, 1, assign[:, None])[:, 0]
+
+    # the path, as a user calls it; the counts are read right after
+    backend.reset_launch_counts()
+    outs = [cycle_gain_padded(*args) for _, args in tiles]
+    swap = swap_gains(aff, assign, tok)
+    counts = backend.launch_counts()
+    require(counts["cycle_gain"] == len(tiles) + 1,
+            f"[cycle_gain] {counts['cycle_gain']} kernel launches for "
+            f"{len(tiles) + 1} calls: {counts}")
+    kernels["cycle_gain"]["launches"] = counts["cycle_gain"]
+    sync()
+
+    k3 = kernels["cycle_gain"]
+    k3["max_abs_err"] = 0.0
+    rows = []
+    for (name, args), got in zip(tiles, outs):
+        want = cycle_gain_plain(*args)
+        k3["max_abs_err"] = max(k3["max_abs_err"], assert_identical(
+            got, want, f"[cycle_gain] {name}"))
+        require(torch.equal(got[0].view(torch.int32),
+                            want[0].view(torch.int32)),
+                f"[cycle_gain] {name}: gains differ in their bits")
+        found = int((got[1] >= 0).sum())
+        rows.append(dict(case=name, shape=tuple(args[0].shape),
+                         columns_with_row=found))
+        print(f"[cycle_gain] {name}: kernel == plain bit for bit (gains "
+              f"and rows); {found} of {args[0].shape[1]} columns have a row")
+    want = swap_gains(aff, assign, tok, use_kernel=False)
+    assert_identical(swap, want, "[cycle_gain] swap_gains")
+    require(torch.equal(swap[0].view(torch.int32), want[0].view(torch.int32)),
+            "[cycle_gain] swap_gains: gains differ in their bits")
+    print(f"[cycle_gain] swap_gains (T {t}, E {e}): kernel == plain bit for "
+          f"bit; {int((swap[0] > 0).sum())} tokens have a positive swap")
+    del outs, want
+
+    # timed on the 16,384 x 16,384 pair
+    name, args = tiles[1]
+    m, n = args[0].shape
+    k3["ms"] = event_ms(lambda: cycle_gain(*args), 21)
+    k3["plain_ms"] = event_ms(lambda: cycle_gain_plain(*args), 3)
+    k3["bound_ms"], k3["bound_by"] = bound_ms(*tile_bytes(m, n))
+    small = tiles[0][1]
+    small_ms = event_ms(lambda: cycle_gain(*small), 21)
+    small_plain_ms = event_ms(lambda: cycle_gain_plain(*small), 5)
+    a = aff[:, assign]
+    a2 = a.T.contiguous()
+    swap_ms = event_ms(lambda: cycle_gain(a, a2, tok, tok), 21)
+    swap_entry_ms = event_ms(lambda: swap_gains(aff, assign, tok), 21)
+    swap_plain_ms = event_ms(lambda: swap_gains(aff, assign, tok,
+                                                use_kernel=False), 5)
+    print(f"[cycle_gain] {name}: kernel {k3['ms']:.4f} ms (median of 21), "
+          f"plain {k3['plain_ms']:.3f} ms (median of 3), bound "
+          f"{k3['bound_ms']:.4f} ms ({k3['bound_by']}); 512x512: kernel "
+          f"{small_ms:.4f} ms, plain {small_plain_ms:.4f} ms, bound "
+          f"{bound_ms(*tile_bytes(512, 512))[0]:.5f} ms; swap_gains "
+          f"(T {t}): kernel {swap_ms:.4f} ms, entry with the gather and "
+          f"transpose {swap_entry_ms:.4f} ms, plain {swap_plain_ms:.4f} ms, "
+          f"bound {bound_ms(*tile_bytes(t, t))[0]:.5f} ms")
+    log["cycle_gain"] = dict(cases=rows, ms=k3["ms"], plain_ms=k3["plain_ms"],
+                             bound_ms=k3["bound_ms"], small_ms=small_ms,
+                             small_plain_ms=small_plain_ms, swap_ms=swap_ms,
+                             swap_entry_ms=swap_entry_ms,
+                             swap_plain_ms=swap_plain_ms)
+
+
 def phase_moe(log, kernels):
     """MoE serving on qwen2-moe-a2.7b at full width and depth with the AWPM
     router; returns layer 0's router input at the prefill and the decode
@@ -997,6 +1382,15 @@ def main(argv=None) -> int:
             source="src/repro_torch/kernels/csrc/router_swap.cu",
             replaces="src/repro/kernels/router_swap/router_swap.py:68",
             library_ms=None),
+        "embedding_bag": dict(
+            name="embedding_bag", route="cuda",
+            source="src/repro_torch/kernels/csrc/embedding_bag.cu",
+            replaces="src/repro/kernels/embedding_bag/embedding_bag.py:50"),
+        "cycle_gain": dict(
+            name="cycle_gain", route="cuda",
+            source="src/repro_torch/kernels/csrc/cycle_gain.cu",
+            replaces="src/repro/kernels/cycle_gain/cycle_gain.py:64",
+            library_ms=None),
     }
     log = {}
     t0 = time.perf_counter()
@@ -1008,8 +1402,14 @@ def main(argv=None) -> int:
     phase_quality(log)
     phase_lm(log, kernels)
     phase_flash(log, kernels)
-    del single_run  # the MoE model takes 57 GB of the card
-    swap_inputs = phase_moe(log, kernels)
+    del single_run
+    free_card()
+    model, seqs = phase_recsys(log)
+    phase_embedding_bag(log, kernels, model, seqs)
+    del model, seqs
+    free_card()
+    phase_cycle_gain(log, kernels)
+    swap_inputs = phase_moe(log, kernels)  # frees the card first: 57 GB
     phase_router_swap(log, kernels, swap_inputs)
     log["total_s"] = time.perf_counter() - t0
     print(f"[done] {log['total_s']:.1f} s; card {log['card']}")

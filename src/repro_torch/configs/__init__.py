@@ -5,19 +5,19 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import LMConfig, MoECfg
+from repro_torch.configs.base import LMConfig, MoECfg, RecSysConfig
 
 _MODULES = {
     "qwen2-0.5b": "qwen2_0_5b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "deepseek-moe-16b": "deepseek_moe_16b",
+    "bert4rec": "bert4rec",
 }
 
 #: archs of the JAX package that the port cannot run yet -> ROADMAP item
 _NOT_YET = {
     "qwen2-7b": "Queue 1, item 12d (further dense LMs)",
     "qwen1.5-110b": "Queue 1, item 12d (further dense LMs)",
-    "bert4rec": "Queue 1, item 12e (recsys)",
     "graphsage-reddit": "Queue 1, item 12f (GNNs)",
     "equiformer-v2": "Queue 1, item 12f (GNNs)",
     "dimenet": "Queue 1, item 12f (GNNs)",
@@ -37,4 +37,4 @@ def get_config(arch: str, reduced: bool = False, **kw):
     return mod.reduced(**kw) if reduced else mod.config(**kw)
 
 
-__all__ = ["LMConfig", "MoECfg", "get_config"]
+__all__ = ["LMConfig", "MoECfg", "RecSysConfig", "get_config"]

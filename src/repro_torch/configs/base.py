@@ -1,5 +1,6 @@
-"""Config dataclasses of the language-model family (copies of the JAX
-package's ``configs/base.py``; plain frozen dataclasses).
+"""Config dataclasses of the language-model and recsys families, and the
+recsys shape cells (copies of the JAX package's ``configs/base.py``;
+plain frozen dataclasses).
 
 ``MoECfg`` configures the MoE layers of ``models/moe.py``: its ``router``
 is ``"topk"`` (the published baseline) or ``"awpm"`` (the matching
@@ -68,3 +69,57 @@ class LMConfig:
     @property
     def family(self) -> str:
         return "lm"
+
+
+@dataclasses.dataclass(frozen=True)
+class RecSysConfig:
+    name: str
+    kind: str  # bert4rec
+    embed_dim: int
+    n_blocks: int
+    n_heads: int
+    seq_len: int
+    n_items: int = 1_000_000
+    d_ff_mult: int = 4
+    dtype: str = "float32"
+
+    @property
+    def padded_items(self) -> int:
+        """Item-table rows (n_items + mask + pad), rounded up to a multiple
+        of 512 as the JAX package rounds them for its row-sharded table."""
+        return -(-(self.n_items + 2) // 512) * 512
+
+    @property
+    def family(self) -> str:
+        return "recsys"
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One input-shape cell; for the recsys family its ``batch`` and
+    ``n_candidates``."""
+
+    name: str
+    mode: str
+    dims: tuple[tuple[str, int], ...]
+
+    def d(self, key, default=0) -> int:
+        return dict(self.dims).get(key, default)
+
+
+#: the serving cells of the JAX package's ``RECSYS_SHAPES`` (its
+#: ``train_batch`` comes with training)
+RECSYS_SHAPES = (
+    ShapeSpec("serve_p99", "serve", (("batch", 512),)),
+    ShapeSpec("serve_bulk", "serve", (("batch", 262144),)),
+    ShapeSpec("retrieval_cand", "retrieval",
+              (("batch", 1), ("n_candidates", 1_000_000))),
+)
+
+
+def recsys_shape(name: str) -> ShapeSpec:
+    """The recsys shape cell called ``name``."""
+    for spec in RECSYS_SHAPES:
+        if spec.name == name:
+            return spec
+    raise KeyError(f"unknown recsys shape {name!r}")

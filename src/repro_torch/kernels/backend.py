@@ -28,7 +28,7 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("awac_sweep.cu", "awac_persistent.cu", "flash_attention.cu",
-           "router_swap.cu")
+           "router_swap.cu", "embedding_bag.cu", "cycle_gain.cu")
 HEADERS = ("awac_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -49,6 +49,10 @@ SIGNATURES = {
     "flash_attention": [c_ptr] * 4 + [c_int] * 8 + [c_float, c_ptr],
     # aff, assign, cur, gain, partner; G, T, E; stream
     "router_swap": [c_ptr] * 5 + [c_int] * 3 + [c_ptr],
+    # idx, w, table, out; B, L, V, D; stream
+    "embedding_bag": [c_ptr] * 4 + [c_int] * 4 + [c_ptr],
+    # a, a2, u, v, gain, row; M, N; stream
+    "cycle_gain": [c_ptr] * 6 + [c_int] * 2 + [c_ptr],
 }
 
 _LIB = None
@@ -142,11 +146,13 @@ def check(err: int, name: str) -> None:
 
 def launch_counts() -> dict[str, int]:
     """Launches of each hand-written kernel since the last reset."""
-    awac_sweep, persistent, flash, swap = _kernel_modules()
+    awac_sweep, persistent, flash, swap, bag, tile = _kernel_modules()
     return {"awac_sweep": awac_sweep.launches,
             "awac_persistent": persistent.launches,
             "flash_attention": flash.launches,
-            "router_swap": swap.launches}
+            "router_swap": swap.launches,
+            "embedding_bag": bag.launches,
+            "cycle_gain": tile.launches}
 
 
 def reset_launch_counts() -> None:
@@ -156,9 +162,10 @@ def reset_launch_counts() -> None:
 
 def _kernel_modules():
     """The wrapper modules that hold the launch counters (imported here:
-    they import this module; the flash-attention and router-swap packages
-    export a function of their module's name, so the modules are looked up
-    by path)."""
+    they import this module; the flash-attention, router-swap and
+    embedding-bag packages export a function of their module's name, so
+    the modules are looked up by path)."""
     return tuple(importlib.import_module(f"repro_torch.kernels.{m}") for m in (
         "cycle_gain.awac_sweep", "cycle_gain.persistent",
-        "flash_attention.flash_attention", "router_swap.router_swap"))
+        "flash_attention.flash_attention", "router_swap.router_swap",
+        "embedding_bag.embedding_bag", "cycle_gain.cycle_gain"))

@@ -1,16 +1,49 @@
-"""The engines' entry points into the AWAC kernels: B=1 slices and the
-mapping of the sweep's sentinels to the engines' winner contract.
+"""The public entries of the cycle-gain kernels (the counterpart of the
+JAX package's ``kernels/cycle_gain/ops.py``): the dense tile K3
+(``cycle_gain_padded``, ``swap_gains``), and the engines' entry points
+into the AWAC kernels K1 and K2, B=1 slices and the mapping of the
+sweep's sentinels to the engines' winner contract.
 
-The CUDA kernels mask the ragged tail of the edge list themselves, so no
-padding of the edge arrays to a tile size is needed here.
+The CUDA kernels take any shape (K3 any M and N; K1 and K2 mask the
+ragged tail of the edge list themselves), so nothing is padded here.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.cycle_gain.awac_sweep import awac_sweep_batched
+from repro_torch.kernels.cycle_gain.cycle_gain import cycle_gain
 from repro_torch.kernels.cycle_gain.persistent import awac_persistent_batched
+from repro_torch.kernels.cycle_gain.ref import cycle_gain_plain
 from repro_torch.sparse.ops import NEG
+
+
+def cycle_gain_padded(a, a2, u, v, *, use_kernel: bool = True):
+    """The dense cycle-gain tile: K3 on CUDA tensors, its plain version on
+    CPU tensors, and the plain version with ``use_kernel=False`` (as JAX's
+    takes ``cycle_gain_ref``). a, a2 [M, N] float32 (0.0 = absent); u [M];
+    v [N]. Returns (gain [N] float32, row [N] int32, -1 where no
+    candidate)."""
+    if not use_kernel:
+        return cycle_gain_plain(a, a2, u, v)
+    return cycle_gain(a, a2, u, v)
+
+
+def swap_gains(affinity, assign_expert, tok_affinity, *,
+               use_kernel: bool = True):
+    """The AWPM router's swap gains through the dense cycle-gain contract,
+    as the JAX package's ``swap_gains`` computes them: ``A[i, j] =
+    affinity[i, assign_expert[j]]``, ``A2 = A.T`` and ``u = v =
+    tok_affinity``. Returns each token j's best partner gain [T] and row
+    [T].
+
+    Reproduced as the reference has it, unlike K4 (``router_swap``): the
+    same token and the same expert are not excluded (their gain is
+    exactly 0, so they can win a column that has no positive swap), and
+    an affinity of exactly 0.0 counts as absent (ROADMAP.md, Queue 3)."""
+    a = affinity[:, assign_expert.long()]  # [T, T]: aff[i, e_j]
+    return cycle_gain_padded(a, a.T.contiguous(), tok_affinity, tok_affinity,
+                             use_kernel=use_kernel)
 
 
 def awac_sweep_winners_batched(row, col, val, row_ptr, mate_row, mate_col, u,

@@ -1,4 +1,5 @@
-"""Carry the JAX package's LM weights and config across to the port.
+"""Carry the JAX package's LM and bert4rec weights and configs across to
+the port.
 
 ``state_dict_from_jax`` turns the JAX parameter tree of ``lm_def`` (numpy
 arrays; each block parameter stacked along a leading layer axis, as
@@ -11,6 +12,13 @@ transposed. It raises on a leaf it does not consume (``moe_def`` gives the
 shared gate no bias, and neither does the port) and on one it lacks.
 ``config_from_jax`` copies an ``LMConfig``'s fields and maps
 ``attention_impl`` "xla" / "pallas" to "torch" / "cuda".
+
+``bert4rec_state_dict_from_jax`` does the same for the tree of
+``bert4rec_def``, whose blocks are a list (not stacked): ``items``,
+``pos``, ``blocks/<i>/{ln1,q,k,v,o,ln2,ffn/up,ffn/down}``, ``final_ln``
+and ``out_bias``, each dense weight transposed; it too raises on a leaf
+left over or missing. ``recsys_config_from_jax`` copies a
+``RecSysConfig``'s fields.
 """
 from __future__ import annotations
 
@@ -19,7 +27,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from repro_torch.configs.base import LMConfig, MoECfg
+from repro_torch.configs.base import LMConfig, MoECfg, RecSysConfig
 
 ATTENTION_IMPL = {"xla": "torch", "pallas": "cuda"}
 
@@ -63,12 +71,14 @@ def _groups(cfg) -> list[tuple[str, int, bool]]:
 
 
 def flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
-    """A nested mapping of arrays -> {"a/b/c": array}; a flat mapping with
-    such keys passes through."""
+    """A nested mapping (or list) of arrays -> {"a/b/c": array}, a list's
+    items keyed by their index; a flat mapping with such keys passes
+    through."""
+    items = tree.items() if isinstance(tree, Mapping) else enumerate(tree)
     out = {}
-    for key, val in tree.items():
+    for key, val in items:
         path = f"{prefix}{key}"
-        if isinstance(val, Mapping):
+        if isinstance(val, (Mapping, list, tuple)):
             out.update(flatten(val, path + "/"))
         else:
             out[path] = np.asarray(val)
@@ -85,10 +95,11 @@ def config_from_jax(fields: Mapping) -> LMConfig:
     return LMConfig(**kw)
 
 
-def state_dict_from_jax(params, cfg) -> dict[str, torch.Tensor]:
-    """The port's ``LM`` state dict from the JAX parameter tree."""
+def _taker(params):
+    """(take, refuse) over the flattened tree: ``take(key)`` returns a leaf
+    and marks it consumed; ``refuse()`` raises on the leaves not taken."""
     flat = flatten(params)
-    out, used = {}, set()
+    used = set()
 
     def take(key):
         if key not in flat:
@@ -96,7 +107,22 @@ def state_dict_from_jax(params, cfg) -> dict[str, torch.Tensor]:
         used.add(key)
         return flat[key]
 
-    out["embed"] = torch.from_numpy(take("embed").copy())
+    def refuse():
+        left = sorted(set(flat) - used)
+        if left:
+            raise ValueError(f"JAX leaves the port does not consume: {left}")
+
+    return take, refuse
+
+
+def _tensor(w: np.ndarray, transpose: bool = False) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(w.T if transpose else w))
+
+
+def state_dict_from_jax(params, cfg) -> dict[str, torch.Tensor]:
+    """The port's ``LM`` state dict from the JAX parameter tree."""
+    take, refuse = _taker(params)
+    out = {"embed": _tensor(take("embed"))}
     for group, n_layers, moe_layer in _groups(cfg):
         for leaf, (name, transpose) in _block_leaves(cfg, moe_layer).items():
             key = f"{group}/{leaf}"
@@ -105,14 +131,41 @@ def state_dict_from_jax(params, cfg) -> dict[str, torch.Tensor]:
                 raise ValueError(f"{key}: {stacked.shape[0]} layers stacked, "
                                  f"the config has {n_layers}")
             for i in range(n_layers):
-                w = stacked[i].T if transpose else stacked[i]
-                out[f"{group}.{i}.{name}"] = torch.from_numpy(
-                    np.ascontiguousarray(w))
-    out["final_norm.scale"] = torch.from_numpy(take("final_norm/scale").copy())
+                out[f"{group}.{i}.{name}"] = _tensor(stacked[i], transpose)
+    out["final_norm.scale"] = _tensor(take("final_norm/scale"))
     if not cfg.tie_embeddings:
-        out["lm_head.weight"] = torch.from_numpy(
-            np.ascontiguousarray(take("lm_head/w").T))
-    left = sorted(set(flat) - used)
-    if left:
-        raise ValueError(f"JAX leaves the port does not consume: {left}")
+        out["lm_head.weight"] = _tensor(take("lm_head/w"), transpose=True)
+    refuse()
+    return out
+
+
+def recsys_config_from_jax(fields: Mapping) -> RecSysConfig:
+    """A ``RecSysConfig`` from the fields of the JAX package's
+    ``RecSysConfig`` (``dataclasses.asdict``)."""
+    return RecSysConfig(**fields)
+
+
+_BERT4REC_BLOCK = {
+    **{f"{n}/{p}": (f"{n}.{p}", False) for n in ("ln1", "ln2")
+       for p in ("scale", "bias")},
+    **{f"{n}/w": (f"{n}.weight", True) for n in
+       ("q", "k", "v", "o", "ffn/up", "ffn/down")},
+    **{f"{n}/b": (f"{n}.bias", False) for n in
+       ("q", "k", "v", "o", "ffn/up", "ffn/down")},
+}
+
+
+def bert4rec_state_dict_from_jax(params, cfg) -> dict[str, torch.Tensor]:
+    """The port's ``Bert4Rec`` state dict from the JAX parameter tree of
+    ``bert4rec_def`` (numpy arrays)."""
+    take, refuse = _taker(params)
+    out = {name: _tensor(take(name)) for name in ("items", "pos",
+                                                  "out_bias")}
+    for i in range(cfg.n_blocks):
+        for leaf, (name, transpose) in _BERT4REC_BLOCK.items():
+            out[f"blocks.{i}.{name.replace('/', '.')}"] = _tensor(
+                take(f"blocks/{i}/{leaf}"), transpose)
+    for p in ("scale", "bias"):
+        out[f"final_ln.{p}"] = _tensor(take(f"final_ln/{p}"))
+    refuse()
     return out

@@ -1,9 +1,15 @@
-"""Shared neural layers of the LM path (the port of the JAX package's
-``models/layers.py``: ``rmsnorm``, ``dense``, the SwiGLU ``mlp`` and
-``rope``), with the JAX package's dtype rules:
+"""Shared neural layers of the LM and recsys paths (the port of the JAX
+package's ``models/layers.py``: ``rmsnorm``, ``layernorm``, ``dense``, the
+SwiGLU ``mlp``, the GELU ``gelu_mlp`` and ``rope``), with the JAX
+package's dtype rules:
 
   - ``rmsnorm``: ``x * rsqrt(var)`` promotes a bf16 ``x`` to float32 before
     ``* scale``; the result is cast back to ``x``'s dtype;
+  - ``layernorm``: JAX's formula written out, in float32: eps 1e-6 inside
+    the rsqrt and the population variance (``F.layer_norm`` takes another
+    eps);
+  - ``gelu_mlp``: ``jax.nn.gelu`` is the tanh approximation by default,
+    so the port's is ``F.gelu(x, approximate="tanh")``, not the erf GELU;
   - ``dense``: the float32 weight (and bias) is cast to the activation
     dtype before the product, and the bias is added after it, rounded
     apart as JAX does (``x @ w``, then ``+ b``);
@@ -12,8 +18,7 @@
 Weights are float32 parameters, cast at each use as in the JAX package.
 A dense product is a plain matrix product outside any kernel and goes to
 ``torch.nn.functional.linear``; ``Dense`` keeps ``nn.Linear``'s layout,
-``weight`` [out, in]. ``layernorm``, ``gelu_mlp`` and ``softmax_xent``
-come with the recsys and training slices.
+``weight`` [out, in]. ``softmax_xent`` comes with the training slice.
 """
 from __future__ import annotations
 
@@ -38,6 +43,25 @@ class RMSNorm(nn.Module):
 
     def forward(self, x):
         return rmsnorm(self.scale, x)
+
+
+def layernorm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+              eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, d: int, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d, device=device))
+        self.bias = nn.Parameter(torch.zeros(d, device=device))
+
+    def forward(self, x):
+        return layernorm(self.scale, self.bias, x)
 
 
 class Dense(nn.Module):
@@ -72,6 +96,23 @@ class MLP(nn.Module):
 
     def forward(self, x):
         return self.down(F.silu(self.gate(x)) * self.up(x))
+
+
+def gelu_mlp(up: Dense, down: Dense, x: torch.Tensor) -> torch.Tensor:
+    return down(F.gelu(up(x), approximate="tanh"))
+
+
+class GeluMLP(nn.Module):
+    """GELU MLP with biases (BERT-style, used by bert4rec)."""
+
+    def __init__(self, d: int, hidden: int, device=None,
+                 gen: torch.Generator | None = None):
+        super().__init__()
+        self.up = Dense(d, hidden, bias=True, device=device, gen=gen)
+        self.down = Dense(hidden, d, bias=True, device=device, gen=gen)
+
+    def forward(self, x):
+        return gelu_mlp(self.up, self.down, x)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
