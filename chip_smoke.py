@@ -34,11 +34,16 @@ and prints what it measured:
      the plain attention, logits compared; the smoke-size model (float32)
      on the card against the same weights on the CPU, ids identical;
      one prefill and four decode steps under ``torch.profiler``;
-  7. [flash] the flash-attention kernel against its plain version on the
-     prefill's shapes (bf16 and float32, causal and full, and a ragged
-     S), timed beside its bound, its plain version and
-     ``torch.nn.functional.scaled_dot_product_attention``; the same at
-     qwen2-moe-a2.7b's head shape, q/k/v [4, 16, 2048, 128] bf16 causal;
+  7. [flash] K5 against its plain version: the bf16 tensor-core kernel on
+     the prefill's shapes, causal and full, a ragged S, D = 16 and 32,
+     Sk != S both ways and the model layout's strided views (through
+     ``ops.attention``, which must allocate only its output and put K5
+     alone on the stream), the float32 CUDA-core kernel on the prefill's
+     shape; each path timed there, by CUDA events around one call and by
+     a CUDA graph of 20 calls, beside its bound, its plain version and
+     ``torch.nn.functional.scaled_dot_product_attention``, and the bf16
+     kernel also at qwen2-moe-a2.7b's head shape, q/k/v [4, 16, 2048, 128]
+     causal;
   8. [recsys] bert4rec (embed_dim 64, 2 blocks, 2 heads, seq_len 200, a
      table of 1,000,448 items; float32 weights drawn from seed 0 on the
      card): ``serve_recsys`` at the ``serve_p99`` batch (512), the median
@@ -74,8 +79,12 @@ and prints what it measured:
      against the CPU;
  12. [router_swap] K4 against its plain version, bit for bit, on layer 0's
      captured router input at the prefill shape (G = 4, T = 2,100, E = 60)
-     and at the decode shape (G = 1, T = 60), and on a random (300, 60)
-     case; timed beside its bound and its plain version.
+     and at the decode shape (G = 1, T = 60), on a random (300, 60) case
+     and on an odd (T, E) = (1001, 13) with int32 ids; timed beside its
+     bound and its plain version, through its wrapper and through the
+     router's entry (whose CUDA graph must hold K4 alone), with its device
+     time from a CUDA graph of 20 launches and per launch from the prefill
+     profile.
 
 Run from the root of a checkout on a machine with the card:
 
@@ -89,6 +98,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import ctypes
 import dataclasses
 import gc
 import json
@@ -134,6 +144,7 @@ from repro_torch.kernels.cycle_gain.persistent import (  # noqa: E402
 from repro_torch.kernels.cycle_gain.ref import cycle_gain_plain  # noqa: E402
 from repro_torch.kernels.embedding_bag import embedding_bag_plain  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention,
     attention_plain,
     flash_attention,
 )
@@ -142,7 +153,6 @@ from repro_torch.kernels.router_swap import (  # noqa: E402
     router_swap_padded_batched,
     router_swap_plain_batched,
 )
-from repro_torch.kernels.router_swap.ops import pad_for_kernel  # noqa: E402
 from repro_torch.launch.serve import (  # noqa: E402
     grow_cache,
     prompt_tokens,
@@ -231,6 +241,57 @@ def event_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def dev_us(e) -> float:
+    """Device time (us) of a ``key_averages()`` row of device kernels."""
+    return getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0.0)
+
+
+def graph_ms(fn, calls: int = 20) -> float:
+    """Device time of one call of ``fn``, host launch work left out: CUDA
+    events around the replay of a CUDA graph that holds ``calls`` calls
+    (captured after a warm-up call), median of 5 replays, over ``calls``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    ms = event_ms(graph.replay, 5) / calls
+    del graph
+    return ms
+
+
+def graph_node_types(fn) -> list[int]:
+    """The node types of a CUDA graph that captures one call of ``fn``
+    (``cudaGraphNodeType``: 0 is a kernel), read through the CUDA runtime:
+    every kernel, copy and fill the call puts on the stream."""
+    fn()
+    sync()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    rt = ctypes.CDLL("libcudart.so.12")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    require(rt.cudaGraphGetNodes(handle, None, ctypes.byref(n)) == 0,
+            "cudaGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    require(rt.cudaGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0,
+            "cudaGraphGetNodes failed")
+    types = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        rt.cudaGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        types.append(kind.value)
+    del graph
+    return types
+
+
 def assert_identical(got, want, what: str) -> float:
     """Every output equal (value, dtype, shape); returns the max abs error
     over the float outputs (0.0 when identical)."""
@@ -303,10 +364,11 @@ def mcm_counted(row, col, val, n, st):
     return single.state_from_mates(row, col, val, n, mr, mc), out
 
 
-def profiled(fn, label: str, watch: str | None = None) -> dict:
+def profiled(fn, label: str, watch: tuple[str, ...] = ()) -> dict:
     """Device busy share over one call of ``fn`` and the kernels that take
-    its device time, from ``torch.profiler``; with ``watch``, also the
-    device time and launches of the kernels whose name holds it."""
+    its device time, from ``torch.profiler``; for each name in ``watch``,
+    also the device time and launches of the kernels whose name holds
+    it."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, t = wall(fn)
@@ -314,11 +376,6 @@ def profiled(fn, label: str, watch: str | None = None) -> dict:
     # device time of the kernels it launched
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0.0)
-
     busy_us = sum(dev_us(e) for e in rows)
     require(busy_us > 0, f"[profile] {label}: no device time recorded")
     top = sorted(rows, key=dev_us, reverse=True)[:12]
@@ -331,14 +388,16 @@ def profiled(fn, label: str, watch: str | None = None) -> dict:
     out = dict(wall_s=t, device_busy_s=busy_us / 1e6, top=[
         dict(name=e.key, device_ms=dev_us(e) / 1e3, count=e.count)
         for e in top])
-    if watch is not None:
-        hit = [e for e in rows if watch in e.key]
-        out["watch"] = dict(name=watch, count=sum(e.count for e in hit),
-                            device_ms=sum(dev_us(e) for e in hit) / 1e3)
-        print(f"[profile]   {watch}: {out['watch']['device_ms']:.3f} ms over "
-              f"{out['watch']['count']} launches "
-              f"({100 * out['watch']['device_ms'] / 1e3 / out['device_busy_s']:.2f}"
-              f"% of the device time)")
+    out["watch"] = {}
+    for name in watch:
+        hit = [e for e in rows if name in e.key]
+        w = out["watch"][name] = dict(count=sum(e.count for e in hit),
+                                      device_ms=sum(dev_us(e) for e in hit)
+                                      / 1e3)
+        print(f"[profile]   {name}: {w['device_ms']:.3f} ms over "
+              f"{w['count']} launches "
+              f"({100 * w['device_ms'] / 1e3 / out['device_busy_s']:.2f}% "
+              f"of the device time)")
     return out
 
 
@@ -353,7 +412,8 @@ def phase_build(log):
     info = dict(backend.BUILD_INFO)
     log["build_s"] = time.perf_counter() - t0
     regs = [ln.strip() for ln in info.get("ptxas", "").splitlines()
-            if "registers" in ln]
+            if any(w in ln for w in ("entry function", "registers", "spill",
+                                     "wgmma", "arning"))]
     print(f"[build] {log['build_s']:.1f} s, cached={info.get('cached')}: "
           f"{info.get('library')}")
     for ln in regs:
@@ -685,7 +745,8 @@ def phase_lm(log, kernels):
 
     # where the time goes: one prefill, then four decode steps
     log["lm_profile_prefill"] = profiled(
-        lambda: T.prefill(model, tokens, cfg), "[lm] prefill")
+        lambda: T.prefill(model, tokens, cfg), "[lm] prefill",
+        watch=("flash_fwd",))
     cache = grow_cache(T.prefill(model, tokens, cfg)[1], cfg, plen + 4)
     tok = kern_logits.argmax(-1)[:, None]
     log["lm_profile_decode"] = profiled(
@@ -720,77 +781,111 @@ def phase_lm(log, kernels):
 
 
 def phase_flash(log, kernels):
-    """The flash-attention kernel against its plain version on the
-    prefill's shapes, and timed there."""
+    """K5 against its plain version: the bf16 tensor-core kernel on the
+    prefill's shapes and around them (full, a ragged S, D = 16 and 32,
+    Sk != S, the model layout's strided views), the float32 CUDA-core
+    kernel on the prefill's shape; both timed there, the bf16 kernel also
+    at qwen2-moe-a2.7b's head shape, beside its bound, its plain version
+    and ``scaled_dot_product_attention``."""
     dev = torch.device("cuda")
     b, s = LM["batch"], LM["prompt_len"]
     gen = torch.Generator(device=dev).manual_seed(1)
-    cases = [(torch.bfloat16, True, s), (torch.float32, True, s),
-             (torch.bfloat16, False, s), (torch.bfloat16, True, 1000)]
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # what, dtype, causal, S, Sk, D
+        ("prefill", bf16, True, s, s, 64), ("prefill", f32, True, s, s, 64),
+        ("full", bf16, False, s, s, 64), ("ragged", bf16, True, 1000, 1000, 64),
+        ("D=16", bf16, True, s, s, 16), ("D=32", bf16, True, s, s, 32),
+        ("Sk > S", bf16, True, 1000, s, 64), ("Sk < S", bf16, False, s, 1000, 64),
+        ("model layout views", bf16, True, s, s, 64)]
     k5 = kernels["flash_attention"]
     k5["max_abs_err"] = 0.0
     rows = []
-    for dtype, causal, sq in cases:
-        q, k, v = (torch.randn((b, h, sq, 64), generator=gen, device=dev)
-                   .to(dtype) for h in (14, 2, 2))
-        got = flash_attention(q, k, v, causal=causal)
-        sync()
+    for what, dtype, causal, sq, sk, d in cases:
+        q = torch.randn((b, 14, sq, d), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((b, 2, sk, d), generator=gen, device=dev)
+                .to(dtype) for _ in range(2))
+        if what == "model layout views":
+            # q, k, v as the [B, S, heads, D] views of one fused projection,
+            # through the model's entry: no copy, output [B, S, H, D]
+            fused = torch.cat([x.transpose(1, 2) for x in (q, k, v)], dim=2)
+            views = (fused[:, :, :14], fused[:, :, 14:16], fused[:, :, 16:])
+            sync()
+            allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+            got = attention(*views, causal=causal, use_kernel=True)
+            sync()
+            require(torch.cuda.memory_stats()["allocation.all.allocated"]
+                    == allocs + 1 and got.is_contiguous(),
+                    "[flash] the model-layout entry copied an operand or "
+                    "returned a non-contiguous output")
+            nodes = graph_node_types(
+                lambda: attention(*views, causal=causal, use_kernel=True))
+            require(nodes == [0], f"[flash] the model-layout entry put "
+                    f"{nodes} on the stream, not K5 alone")
+            got = got.transpose(1, 2)
+        else:
+            got = flash_attention(q, k, v, causal=causal)
+            sync()
         want = attention_plain(q, k, v, causal=causal)
         tol = FLASH_TOL[dtype]
         err = float((got.float() - want.float()).abs().max())
         require(got.dtype == dtype and torch.allclose(
             got.float(), want.float(), rtol=tol, atol=tol),
-            f"[flash] {dtype} causal={causal} S={sq}: kernel differs from "
-            f"plain by {err}")
+            f"[flash] {what} {dtype} causal={causal} S={sq} Sk={sk} D={d}: "
+            f"kernel differs from plain by {err}")
         k5["max_abs_err"] = max(k5["max_abs_err"], err)
-        rows.append(dict(dtype=str(dtype), causal=causal, s=sq, err=err))
-        print(f"[flash] [{b}, 14, {sq}, 64] / [{b}, 2, {sq}, 64] {dtype} "
-              f"causal={causal}: kernel == plain within {tol} (max abs err "
-              f"{err!r})")
-    # timed on the prefill's own shapes: bf16, causal
-    q, k, v = (torch.randn((b, h, s, 64), generator=gen, device=dev)
-               .to(torch.bfloat16) for h in (14, 2, 2))
-    k5["ms"] = event_ms(lambda: flash_attention(q, k, v, causal=True), 21)
-    k5["plain_ms"] = event_ms(lambda: attention_plain(q, k, v, causal=True),
-                              5)
-    k5["library_ms"] = event_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), 21)
-    k5["bound_ms"], k5["bound_by"] = bound_ms(
-        *attention_work(b, 14, 2, s, s, 64, True, 2), BF16_OPS_PER_S)
-    print(f"[flash] [{b}, 14, {s}, 64] bf16 causal: kernel {k5['ms']:.3f} ms "
-          f"(median of 21), plain {k5['plain_ms']:.3f} ms (median of 5), "
-          f"scaled_dot_product_attention {k5['library_ms']:.3f} ms (median "
-          f"of 21), bound {k5['bound_ms']:.4f} ms ({k5['bound_by']})")
-    # qwen2-moe-a2.7b's head shape: 16 heads, 16 kv heads, D = 128
-    q, k, v = (torch.randn((b, 16, s, 128), generator=gen, device=dev)
-               .to(torch.bfloat16) for _ in range(3))
-    got = flash_attention(q, k, v, causal=True)
-    sync()
-    want = attention_plain(q, k, v, causal=True)
-    tol = FLASH_TOL[torch.bfloat16]
-    err = float((got.float() - want.float()).abs().max())
-    require(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
-            f"[flash] D=128: kernel differs from plain by {err}")
-    del want
-    k5["max_abs_err"] = max(k5["max_abs_err"], err)
-    d128 = dict(err=err, ms=event_ms(
-        lambda: flash_attention(q, k, v, causal=True), 21))
-    d128["plain_ms"] = event_ms(lambda: attention_plain(q, k, v, causal=True),
-                                5)
-    d128["library_ms"] = event_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True), 21)
-    d128["bound_ms"], d128["bound_by"] = bound_ms(
-        *attention_work(b, 16, 16, s, s, 128, True, 2), BF16_OPS_PER_S)
-    print(f"[flash] [{b}, 16, {s}, 128] bf16 causal: kernel == plain within "
-          f"{tol} (max abs err {err!r}); kernel {d128['ms']:.3f} ms (median "
-          f"of 21), plain {d128['plain_ms']:.3f} ms (median of 5), "
-          f"scaled_dot_product_attention {d128['library_ms']:.3f} ms (median "
-          f"of 21), bound {d128['bound_ms']:.4f} ms ({d128['bound_by']})")
-    log["flash"] = dict(cases=rows, ms=k5["ms"], plain_ms=k5["plain_ms"],
-                        library_ms=k5["library_ms"],
-                        bound_ms=k5["bound_ms"], d128=d128)
+        rows.append(dict(case=what, dtype=str(dtype), causal=causal, s=sq,
+                         sk=sk, d=d, err=err))
+        print(f"[flash] {what}: [{b}, 14, {sq}, {d}] / [{b}, 2, {sk}, {d}] "
+              f"{dtype} causal={causal}: kernel == plain within {tol} (max "
+              f"abs err {err!r})")
+    timed = {}
+    for name, h, hkv, d, dtype in (("d64", 14, 2, 64, bf16),
+                                   ("d128", 16, 16, 128, bf16),
+                                   ("d64_f32", 14, 2, 64, f32)):
+        q = torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((b, hkv, s, d), generator=gen, device=dev)
+                .to(dtype) for _ in range(2))
+        if name == "d128":  # qwen2-moe-a2.7b's head shape
+            got = flash_attention(q, k, v, causal=True)
+            sync()
+            want = attention_plain(q, k, v, causal=True)
+            err = float((got.float() - want.float()).abs().max())
+            require(torch.allclose(got.float(), want.float(),
+                                   rtol=FLASH_TOL[bf16], atol=FLASH_TOL[bf16]),
+                    f"[flash] D=128: kernel differs from plain by {err}")
+            del got, want
+            k5["max_abs_err"] = max(k5["max_abs_err"], err)
+            rows.append(dict(case="qwen2-moe-a2.7b heads", dtype=str(bf16),
+                             causal=True, s=s, sk=s, d=d, err=err))
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)
+
+        t = dict(ms=event_ms(lambda: flash_attention(q, k, v, causal=True),
+                             21),
+                 plain_ms=event_ms(
+                     lambda: attention_plain(q, k, v, causal=True), 5),
+                 library_ms=event_ms(sdpa, 21),
+                 device_ms=graph_ms(
+                     lambda: flash_attention(q, k, v, causal=True)),
+                 library_device_ms=graph_ms(sdpa))
+        t["bound_ms"], t["bound_by"] = bound_ms(
+            *attention_work(b, h, hkv, s, s, d, True, q.element_size()),
+            BF16_OPS_PER_S if dtype == bf16 else F32_OPS_PER_S)
+        ops = attention_work(b, h, hkv, s, s, d, True, 2)[1]
+        t["tflops"] = ops / t["ms"] / 1e9
+        timed[name] = t
+        print(f"[flash] [{b}, {h}, {s}, {d}] / [{b}, {hkv}, {s}, {d}] {dtype} "
+              f"causal: kernel {t['ms']:.4f} ms (CUDA events around one "
+              f"call, median of 21; {t['tflops']:.0f} TFLOP/s), device "
+              f"time {t['device_ms']:.4f} ms (a CUDA graph of 20 calls); plain "
+              f"{t['plain_ms']:.3f} ms (median of 5); "
+              f"scaled_dot_product_attention {t['library_ms']:.4f} ms, "
+              f"device time {t['library_device_ms']:.4f} ms; bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"):
+        k5[key] = timed["d64"][key]
+    log["flash"] = dict(cases=rows, **timed)
 
 
 def free_card() -> None:
@@ -1242,12 +1337,12 @@ def phase_moe(log, kernels):
     # where the time goes: one prefill, then one decode step
     log["moe_profile_prefill"] = profiled(
         lambda: T.prefill(model, tokens, cfg), "[moe] prefill",
-        watch="router_swap")
+        watch=("router_swap", "flash_fwd"))
     cache = grow_cache(T.prefill(model, tokens, cfg)[1], cfg, plen + 2)
     tok = logits.argmax(-1)[:, None]
     log["moe_profile_decode"] = profiled(
         lambda: T.decode_step(model, cache, tok, plen, cfg),
-        "[moe] 1 decode step", watch="router_swap")
+        "[moe] 1 decode step", watch=("router_swap",))
     # layer 0's router logits in a decode step
     dec = []
     h = model.moe_blocks[0].ffn.router.register_forward_hook(
@@ -1302,7 +1397,11 @@ def swap_work(assign, e: int) -> tuple[float, float]:
 def phase_router_swap(log, kernels, inputs):
     """K4 against its plain version, bit for bit, on the router's own
     inputs (layer 0's first routing round: the balanced assignment of its
-    captured logits) and on a random case; timed at the prefill shape."""
+    captured logits), on a random case and on an odd (T, E) with int32
+    ids; timed at the prefill shape, through the kernel's wrapper and
+    through the entry the router calls, with the entry's device launches
+    counted and K4's device time per launch read from the prefill
+    profile."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     cases = []
@@ -1314,11 +1413,15 @@ def phase_router_swap(log, kernels, inputs):
     cases.append(("random (300, 60)",
                   torch.randn((1, 300, 60), generator=gen, device=dev),
                   torch.randint(0, 60, (1, 300), generator=gen, device=dev)))
+    cases.append(("odd (T, E) = (1001, 13), int32 ids",
+                  torch.randn((8, 1001, 13), generator=gen, device=dev),
+                  torch.randint(0, 13, (8, 1001), generator=gen, device=dev,
+                                dtype=torch.int32)))
     k4 = kernels["router_swap"]
     k4["max_abs_err"] = 0.0
     rows = []
     for what, aff, assign in cases:
-        cur = torch.gather(aff, 2, assign[..., None])[..., 0]
+        cur = torch.gather(aff, 2, assign.long()[..., None])[..., 0]
         got = router_swap_padded_batched(aff, assign, cur)
         sync()
         want = router_swap_plain_batched(aff, assign, cur)
@@ -1334,22 +1437,33 @@ def phase_router_swap(log, kernels, inputs):
     # timed on the prefill shape
     _, aff, assign = cases[0]
     cur = torch.gather(aff, 2, assign[..., None])[..., 0]
-    padded = pad_for_kernel(aff, assign, cur)
-    k4["ms"] = event_ms(lambda: router_swap(*padded), 21)
+    k4["ms"] = event_ms(lambda: router_swap(aff, assign, cur), 21)
     k4["plain_ms"] = event_ms(lambda: router_swap_plain_batched(
         aff, assign, cur), 5)
     entry_ms = event_ms(lambda: router_swap_padded_batched(aff, assign, cur),
                         21)
+    entry_nodes = graph_node_types(
+        lambda: router_swap_padded_batched(aff, assign, cur))
+    require(entry_nodes == [0], f"[router_swap] the entry put {entry_nodes} "
+            f"on the stream, not one kernel")
+    alone_ms = graph_ms(lambda: router_swap(aff, assign, cur))
+    watch = log["moe_profile_prefill"]["watch"]["router_swap"]
+    per_launch = watch["device_ms"] / watch["count"]
     k4["bound_ms"], k4["bound_by"] = bound_ms(*swap_work(assign,
                                                          aff.shape[2]))
     print(f"[router_swap] {tuple(aff.shape)}: kernel {k4['ms']:.4f} ms "
-          f"(median of 21; {entry_ms:.4f} ms with the padding), plain "
+          f"(median of 21, CUDA events around one launch), entry "
+          f"{entry_ms:.4f} ms (one kernel on the stream), plain "
           f"{k4['plain_ms']:.3f} ms (median of 5), bound "
-          f"{k4['bound_ms']:.5f} ms ({k4['bound_by']})")
-    log["router_swap"] = dict(cases=rows, ms=k4["ms"],
-                              padded_entry_ms=entry_ms,
+          f"{k4['bound_ms']:.5f} ms ({k4['bound_by']}); device time "
+          f"{alone_ms:.5f} ms a launch (a CUDA graph of 20 launches), "
+          f"{per_launch:.5f} ms in the prefill profile ({watch['count']} "
+          f"launches, {watch['device_ms']:.3f} ms)")
+    log["router_swap"] = dict(cases=rows, ms=k4["ms"], entry_ms=entry_ms,
+                              entry_nodes=entry_nodes,
                               plain_ms=k4["plain_ms"],
-                              bound_ms=k4["bound_ms"])
+                              bound_ms=k4["bound_ms"], device_ms=alone_ms,
+                              profile_ms_per_launch=per_launch)
 
 
 def main(argv=None) -> int:
@@ -1374,7 +1488,7 @@ def main(argv=None) -> int:
             library_ms=None),
         "flash_attention": dict(
             name="flash_attention", route="cuda",
-            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
             replaces="src/repro/kernels/flash_attention/"
                      "flash_attention.py:73"),
         "router_swap": dict(

@@ -28,7 +28,8 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("awac_sweep.cu", "awac_persistent.cu", "flash_attention.cu",
-           "router_swap.cu", "embedding_bag.cu", "cycle_gain.cu")
+           "flash_attention_tc.cu", "router_swap.cu", "embedding_bag.cu",
+           "cycle_gain.cu")
 HEADERS = ("awac_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -38,17 +39,19 @@ c_ptr = ctypes.c_void_p
 c_int = ctypes.c_int
 c_ll = ctypes.c_longlong
 c_float = ctypes.c_float
+# q, k, v, o; B, H, Hkv, S, Sk, D; 12 strides; causal; scale; stream
+_FLASH_ARGS = [c_ptr] * 4 + [c_int] * 6 + [ctypes.POINTER(c_ll), c_int,
+                                          c_float, c_ptr]
 
 #: argument types of each exported C function, in order
 SIGNATURES = {
     "awac_sweep": [c_ptr] * 8 + [c_float, c_int, c_ll, c_int] + [c_ptr] * 6,
     "awac_persistent": [c_ptr] * 9 + [c_float, c_int, c_int, c_ll, c_int]
     + [c_ptr] * 9,
-    # q, k, v, o; B, H, Hkv, S, Sk, D, dtype (0 f32, 1 bf16), causal;
-    # scale; stream
-    "flash_attention": [c_ptr] * 4 + [c_int] * 8 + [c_float, c_ptr],
-    # aff, assign, cur, gain, partner; G, T, E; stream
-    "router_swap": [c_ptr] * 5 + [c_int] * 3 + [c_ptr],
+    "flash_attention_f32": _FLASH_ARGS,
+    "flash_attention_bf16": _FLASH_ARGS,
+    # aff, assign, cur, gain, partner; G, T, E, idx64; stream
+    "router_swap": [c_ptr] * 5 + [c_int] * 4 + [c_ptr],
     # idx, w, table, out; B, L, V, D; stream
     "embedding_bag": [c_ptr] * 4 + [c_int] * 4 + [c_ptr],
     # a, a2, u, v, gain, row; M, N; stream

@@ -1,20 +1,19 @@
-// Flash attention forward (GQA, causal or full), K5.
+// Flash attention forward (GQA, causal or full), K5's float32 path.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/flash_attention.py
-// (flash_attention, kernel body _kernel): blockwise online-softmax
-// attention, kv head h // (H / Hkv), a float32 accumulator, output in q's
-// dtype. q is [B, H, S, D], k and v are [B, Hkv, Sk, D], all contiguous,
-// float32 or bfloat16; D is 16, 32, 64 or 128.
+// (flash_attention, kernel body _kernel) for float32 inputs: blockwise
+// online-softmax attention, kv head h // (H / Hkv), a float32 accumulator.
+// q is [B, H, S, D], k and v are [B, Hkv, Sk, D] and o [B, H, S, D], each
+// with its own strides (the last dimension contiguous); D is 16, 32, 64 or
+// 128. bfloat16 inputs go to the tensor-core kernel of
+// flash_attention_tc.cu.
 //
 // What bounds it on an H100: operations. The work is 4 * B * H * S * Sk * D
 // floating-point operations (two products), half that under the causal
-// mask, over q, k, v and o each moved once: at B = 4, H = 14,
-// S = Sk = 2048, D = 64 that is 30 GFLOP against 29 MB, about 1,000
-// operations per byte, far above the card's balance point. The bound at the
-// tensor cores' bf16 rate (989 TFLOP/s) is about 0.03 ms. This first
-// version does its arithmetic in float32 on the CUDA cores (67 TFLOP/s
-// peak), so it cannot come within 15 times of that bound; mma.sync or
-// wgmma, TMA and warp specialisation are for a later change.
+// mask, over q, k, v and o each moved once, far above the card's balance
+// point. It runs in full float32 on the CUDA cores (67 TFLOP/s peak): the
+// float32 bar of 2e-5 against the plain version cannot be met in TF32 on
+// the tensor cores.
 //
 // Design: the TPU kernel walked the kv tiles along a sequential grid axis
 // and carried (m, l, acc) from one grid step to the next in VMEM. CUDA
@@ -24,8 +23,7 @@
 // (the tiles past it are fully masked and change nothing), and the q tiles
 // are scheduled longest first. The block stages its q tile (scaled), one
 // k and one v tile and the tile of probabilities in dynamic shared memory,
-// all in float32 (bf16 is converted with __bfloat162float as it is
-// loaded): 68 KB at D = 64, more than the 48 KB of static shared memory,
+// all in float32: 68 KB at D = 64, more than the 48 KB of static shared memory,
 // so the launcher opts in with cudaFuncSetAttribute. 128 threads: thread
 // (ty, tx) = (tid / 8, tid % 8) owns q rows 4 ty .. 4 ty + 3, score columns
 // tx + 8 j and the output columns of chunks of W = min(4, D / 8) starting
@@ -42,13 +40,8 @@
 //
 // Rounding: like the TPU kernel, q is scaled by 1/sqrt(D) in float32
 // before the product; the plain version and the JAX reference scale the
-// scores after it, a difference of one rounding per score. A bf16 x bf16
-// product is exact in float32, so a later tensor-core version keeps these
-// numbers up to the order of summation, except for the scale when
-// D = 128 (1/sqrt(128) is not a power of two, so the scaled q no longer
-// fits in bf16).
+// scores after it, a difference of one rounding per score.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -58,14 +51,10 @@ constexpr int kBK = 64;  // kv rows per tile
 constexpr int kThreads = 128;
 constexpr int kPad = 4;  // floats of padding per shared row
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
+// element strides (batch, head, row) of q, k, v and o
+struct Strides {
+  long long q[3], k[3], v[3], o[3];
+};
 
 template <int D>
 constexpr int smem_bytes() {
@@ -73,11 +62,11 @@ constexpr int smem_bytes() {
                           kBQ * (kBK + kPad));
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, int H, int Hkv,
-              int S, int Sk, int causal, float scale) {
+    flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, Strides st,
+              int H, int Hkv, int S, int Sk, int causal, float scale) {
   constexpr int DP = D + kPad;
   constexpr int KP = kBK + kPad;
   constexpr int W = D >= 32 ? 4 : 2;  // output columns per chunk
@@ -92,17 +81,17 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = (nq - 1 - (int)blockIdx.x) * kBQ;  // longest rows first
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / Hkv);
-  const T* qb = q + ((long long)b * H + h) * S * D;
-  const T* kb = k + ((long long)b * Hkv + hk) * Sk * D;
-  const T* vb = v + ((long long)b * Hkv + hk) * Sk * D;
-  T* ob = o + ((long long)b * H + h) * S * D;
+  const float* qb = q + b * st.q[0] + h * st.q[1];
+  const float* kb = k + b * st.k[0] + hk * st.k[1];
+  const float* vb = v + b * st.v[0] + hk * st.v[1];
+  float* ob = o + b * st.o[0] + h * st.o[1];
   const int tid = threadIdx.x, ty = tid >> 3, tx = tid & 7;
   const float NEG = __uint_as_float(0xff800000u);  // -inf
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, c = i % D;
     Qs[r * DP + c] =
-        q0 + r < S ? to_f(qb[(long long)(q0 + r) * D + c]) * scale : 0.f;
+        q0 + r < S ? qb[(q0 + r) * st.q[2] + c] * scale : 0.f;
   }
 
   float m[4], l[4], acc[4][W * NC];
@@ -120,9 +109,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int r = i / D, c = i % D;
       const bool in = k0 + r < Sk;
-      const long long g = (long long)(k0 + r) * D + c;
-      Ks[r * DP + c] = in ? to_f(kb[g]) : 0.f;
-      Vs[r * D + c] = in ? to_f(vb[g]) : 0.f;
+      Ks[r * DP + c] = in ? kb[(k0 + r) * st.k[2] + c] : 0.f;
+      Vs[r * D + c] = in ? vb[(k0 + r) * st.v[2] + c] : 0.f;
     }
     __syncthreads();
 
@@ -229,63 +217,59 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < NC; ++c)
 #pragma unroll
       for (int w = 0; w < W; ++w)
-        store(&ob[(long long)r * D + 8 * W * c + W * tx + w],
-              acc[i][W * c + w] / den);
+        ob[r * st.o[2] + 8 * W * c + W * tx + w] = acc[i][W * c + w] / den;
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int Hkv, int S, int Sk, int causal,
-                   float scale, cudaStream_t st) {
+                   const Strides& st, int B, int H, int Hkv, int S, int Sk,
+                   int causal, float scale, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err) return err;
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_fwd<T, D><<<grid, kThreads, bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, Hkv, S, Sk, causal,
-      scale);
+  flash_fwd<D><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), st, H, Hkv, S,
+      Sk, causal, scale);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
-                     int B, int H, int Hkv, int S, int Sk, int D, int causal,
-                     float scale, cudaStream_t st) {
-  switch (D) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, B, H, Hkv, S, Sk, causal, scale, st);
-    case 32:
-      return launch<T, 32>(q, k, v, o, B, H, Hkv, S, Sk, causal, scale, st);
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, H, Hkv, S, Sk, causal, scale, st);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, H, Hkv, S, Sk, causal, scale, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
 // o = softmax(q k^T * scale [causal mask]) v per (b, h), kv head
-// h / (H / Hkv). dtype 0 is float32, 1 bfloat16. Launches on `stream`;
-// returns the first CUDA error (cudaErrorInvalidValue for a D, dtype or
-// shape the kernel does not take).
-extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, int B, int H, int Hkv, int S, int Sk,
-                               int D, int dtype, int causal, float scale,
-                               void* stream) {
+// h / (H / Hkv), all float32. `strides` holds 12 element strides, (batch,
+// head, row) of q, k, v and o in turn; the last dimension is contiguous.
+// Launches on `stream`; returns the first CUDA error
+// (cudaErrorInvalidValue for a D or shape the kernel does not take).
+extern "C" int flash_attention_f32(const void* q, const void* k,
+                                   const void* v, void* o, int B, int H,
+                                   int Hkv, int S, int Sk, int D,
+                                   const long long* strides, int causal,
+                                   float scale, void* stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || S <= 0 || Sk <= 0 ||
       B > 65535 || H > 65535)
     return cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch_d<float>(q, k, v, o, B, H, Hkv, S, Sk, D, causal, scale, st);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, k, v, o, B, H, Hkv, S, Sk, D, causal,
-                                   scale, st);
-  return cudaErrorInvalidValue;
+  Strides st;
+  for (int i = 0; i < 3; ++i) {
+    st.q[i] = strides[i];
+    st.k[i] = strides[3 + i];
+    st.v[i] = strides[6 + i];
+    st.o[i] = strides[9 + i];
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (D) {
+    case 16:
+      return launch<16>(q, k, v, o, st, B, H, Hkv, S, Sk, causal, scale, s);
+    case 32:
+      return launch<32>(q, k, v, o, st, B, H, Hkv, S, Sk, causal, scale, s);
+    case 64:
+      return launch<64>(q, k, v, o, st, B, H, Hkv, S, Sk, causal, scale, s);
+    case 128:
+      return launch<128>(q, k, v, o, st, B, H, Hkv, S, Sk, causal, scale, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

@@ -1,6 +1,7 @@
-"""Flash attention forward: the CUDA kernel ``csrc/flash_attention.cu``
-(K5), its wrapper, its plain torch version, and the model-layout entry
-``ops.attention``."""
+"""Flash attention forward, K5: its two CUDA kernels
+(``csrc/flash_attention_tc.cu`` for bfloat16 on the tensor cores,
+``csrc/flash_attention.cu`` for float32), their wrapper, the plain torch
+version, and the model-layout entry ``ops.attention``."""
 from repro_torch.kernels.flash_attention.flash_attention import (
     attention_plain,
     flash_attention,

@@ -1,6 +1,7 @@
 """Swap-gain search of the AWPM MoE router: the CUDA kernel
 ``csrc/router_swap.cu`` (K4), its wrapper, its plain torch version, and
-the padded entry points that ``models/moe.py`` calls."""
+the entry points under the JAX package's names that ``models/moe.py``
+calls."""
 from repro_torch.kernels.router_swap.ops import (
     router_swap_padded,
     router_swap_padded_batched,

@@ -9,8 +9,9 @@ expert; the column max, the smallest row on a tie, -1 where there is none
 A CUDA tensor always goes to the kernel, or the wrapper raises; a CPU
 tensor goes to the plain version ``router_swap_plain_batched``, which the
 tests hold to the JAX reference and the chip check holds the kernel to.
-As with the TPU kernel, T must be a multiple of the tile (64 here) and E
-of 4: ``ops.router_swap_padded_batched`` pads.
+Unlike the TPU kernel, the CUDA kernel takes any T and any E up to
+``MAX_EXPERTS``, and ``assign`` as int32 or int64, so nothing is padded
+or cast.
 """
 from __future__ import annotations
 
@@ -22,10 +23,9 @@ from repro_torch.kernels.router_swap.ref import router_swap_plain_batched
 #: launches of the CUDA kernel since the last ``backend.reset_launch_counts``
 launches = 0
 
-#: T must be a multiple of TILE, E of E_ALIGN and at most MAX_EXPERTS
-TILE = 64
-E_ALIGN = 4
+#: the kernel stages a row tile of [64, E] affinities per buffer
 MAX_EXPERTS = 256
+_INDEX_TYPES = (torch.int32, torch.int64)
 
 
 def _check_inputs(affinity, assign, cur):
@@ -33,25 +33,24 @@ def _check_inputs(affinity, assign, cur):
         raise ValueError(f"expected affinity [G, T, E], got "
                          f"{tuple(affinity.shape)}")
     g, t, e = affinity.shape
-    want = {"affinity": (affinity, torch.float32, (g, t, e)),
-            "assign": (assign, torch.int32, (g, t)),
-            "cur": (cur, torch.float32, (g, t))}
-    for name, (x, dtype, shape) in want.items():
-        if (x.device != affinity.device or x.dtype != dtype
+    want = {"affinity": (affinity, (torch.float32,), (g, t, e)),
+            "assign": (assign, _INDEX_TYPES, (g, t)),
+            "cur": (cur, (torch.float32,), (g, t))}
+    for name, (x, dtypes, shape) in want.items():
+        if (x.device != affinity.device or x.dtype not in dtypes
                 or tuple(x.shape) != shape):
             raise ValueError(
-                f"{name}: expected {dtype} {shape} on {affinity.device}, got "
-                f"{x.dtype} {tuple(x.shape)} on {x.device}")
-    if t % TILE or e % E_ALIGN or not E_ALIGN <= e <= MAX_EXPERTS:
-        raise ValueError(f"T={t} must be a multiple of {TILE} and E={e} a "
-                         f"multiple of {E_ALIGN} in [{E_ALIGN}, "
-                         f"{MAX_EXPERTS}] (ops.router_swap_padded_batched "
-                         "pads)")
+                f"{name}: expected {' or '.join(map(str, dtypes))} {shape} "
+                f"on {affinity.device}, got {x.dtype} {tuple(x.shape)} on "
+                f"{x.device}")
+    if t < 1 or not 1 <= e <= MAX_EXPERTS:
+        raise ValueError(f"T={t} must be at least 1 and E={e} in [1, "
+                         f"{MAX_EXPERTS}]")
 
 
 def router_swap(affinity, assign, cur):
-    """affinity [G, T, E] float32; assign [G, T] int32 (expert ids in
-    [0, E)); cur [G, T] float32. Returns (gain [G, T] float32, partner
+    """affinity [G, T, E] float32; assign [G, T] int32 or int64 (expert ids
+    in [0, E)); cur [G, T] float32. Returns (gain [G, T] float32, partner
     [G, T] int32)."""
     _check_inputs(affinity, assign, cur)
     if affinity.device.type == "cpu":
@@ -71,7 +70,8 @@ def _launch(affinity, assign, cur):
     lib = backend.library()
     stream = torch.cuda.current_stream(affinity.device).cuda_stream
     err = lib.router_swap(*(x.data_ptr() for x in ins), gain.data_ptr(),
-                          partner.data_ptr(), g, t, e, stream)
+                          partner.data_ptr(), g, t, e,
+                          int(assign.dtype == torch.int64), stream)
     launches += 1
     backend.check(err, "router_swap")
     return gain, partner

@@ -12,10 +12,15 @@ rounded on each side, which rounds identically):
     ``tests/test_kernels.py``);
   - a ragged S (not a multiple of the TPU kernel's tile) against
     ``attention_ref``, since the JAX kernel refuses it;
-  - the model-layout entry ``ops.attention`` [B, S, H, D] against JAX's.
+  - bf16 at every head width the kernels take, with Sk != S (longer and
+    shorter) and GQA groups 1, 2 and 7, against ``attention_ref``;
+  - the model-layout entry ``ops.attention`` [B, S, H, D] against JAX's,
+    on contiguous tensors and on non-contiguous views (q, k and v cut
+    from one fused [B, S, H + 2 Hkv, D] projection).
 
-The ``gpu`` tests hold the CUDA kernel to the plain version on the card
-and skip here; on the machine with the card:
+The ``gpu`` tests hold both CUDA kernels (bf16 on the tensor cores,
+float32 on the CUDA cores) to the plain version on the card and skip
+here; on the machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_flash_attention.py
 """
@@ -30,6 +35,9 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_plain,
     flash_attention,
 )
+from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
+    HEAD_DIMS,
+)
 from test_torch_harness import run_reference  # noqa: E402
 
 SHAPES = [  # b, h, hkv, s, d
@@ -39,6 +47,9 @@ SHAPES = [  # b, h, hkv, s, d
     (1, 14, 2, 128, 64),  # qwen2-0.5b: GQA 7:1
 ]
 RAGGED = (1, 14, 2, 100, 64)
+# b, h, hkv, s, sk, d: Sk != S at every head width, GQA groups 1, 2, 7
+SK_CASES = [(1, h, 2, s, sk, d) for d in HEAD_DIMS
+            for h, s, sk in ((2, 40, 72), (4, 72, 40), (14, 50, 90))]
 DTYPES = ("float32", "bfloat16")
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -51,6 +62,12 @@ def _inputs(b, h, hkv, s, d):
 
 def _key(shape):
     return "x".join(map(str, shape))
+
+
+def _sk_inputs(b, h, hkv, s, sk, d):
+    rng = np.random.default_rng([b, h, hkv, s, sk, d])
+    return tuple(rng.normal(size=shape).astype(np.float32)
+                 for shape in ((b, h, s, d), (b, hkv, sk, d), (b, hkv, sk, d)))
 
 
 REFERENCE = """
@@ -76,14 +93,26 @@ for key in IN["keys"]:
             sw = [jnp.swapaxes(x, 1, 2) for x in (qj, kj, vj)]
             OUT[tag + "__ops"] = np.asarray(
                 attention(*sw, causal=causal, use_kernel=True), np.float32)
+for key in IN["sk_keys"]:
+    key = str(key)
+    qj, kj, vj = (jnp.asarray(IN[key + n], jnp.bfloat16)
+                  for n in ("__q", "__k", "__v"))
+    for causal in (True, False):
+        OUT[f"{key}__{int(causal)}__ref"] = np.asarray(
+            attention_ref(qj, kj, vj, causal=causal), np.float32)
 """
 
 
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
-    inputs = {"keys": np.array([_key(s) for s in SHAPES + [RAGGED]])}
+    inputs = {"keys": np.array([_key(s) for s in SHAPES + [RAGGED]]),
+              "sk_keys": np.array([_key(s) for s in SK_CASES])}
     for shape in SHAPES + [RAGGED]:
         q, k, v = _inputs(*shape)
+        inputs.update({f"{_key(shape)}__q": q, f"{_key(shape)}__k": k,
+                       f"{_key(shape)}__v": v})
+    for shape in SK_CASES:
+        q, k, v = _sk_inputs(*shape)
         inputs.update({f"{_key(shape)}__q": q, f"{_key(shape)}__k": k,
                        f"{_key(shape)}__v": v})
     return run_reference(REFERENCE, inputs, tmp_path_factory.mktemp("flash"))
@@ -133,6 +162,37 @@ def test_model_layout_matches_jax(ref, shape, causal, dtype, use_kernel):
     assert got.shape == q.shape
     tag = f"{_key(shape)}__{dtype}__{int(causal)}"
     _close(got, ref[tag + "__ops"], dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", SK_CASES, ids=_key)
+def test_bf16_head_dims_and_sk_match_reference(ref, shape, causal):
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in _sk_inputs(*shape))
+    got = flash_attention(q, k, v, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    _close(got, ref[f"{_key(shape)}__{int(causal)}__ref"], "bfloat16")
+
+
+def _fused_views(q, k, v):
+    """q, k, v [B, H(kv), S, D] copied into one [B, S, H + 2 Hkv, D] tensor
+    and returned as its three non-contiguous [B, S, heads, D] views, as a
+    fused QKV projection would give them."""
+    h, hkv = q.shape[1], k.shape[1]
+    fused = torch.cat([x.transpose(1, 2) for x in (q, k, v)], dim=2)
+    views = (fused[:, :, :h], fused[:, :, h:h + hkv], fused[:, :, h + hkv:])
+    assert not any(x.is_contiguous() for x in views)
+    return views
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", SHAPES[1:], ids=_key)
+def test_model_layout_takes_non_contiguous_views(ref, shape, causal, dtype):
+    views = _fused_views(*_torch_inputs(shape, dtype))
+    got = attention(*views, causal=causal, use_kernel=True)
+    assert got.shape == views[0].shape
+    _close(got, ref[f"{_key(shape)}__{dtype}__{int(causal)}__ops"], dtype)
 
 
 @pytest.mark.parametrize("bad, match", [
@@ -195,6 +255,53 @@ def test_kernel_matches_plain_on_the_card(cuda, shape, causal, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("sk_of", ["same", "longer", "shorter"])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 1000, 2048])
+def test_bf16_kernel_sequence_lengths_on_the_card(cuda, s, sk_of, d, causal):
+    sk = {"same": s, "longer": s + 37, "shorter": max(1, s // 2 + 5)}[sk_of]
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16)
+               for x in _sk_inputs(2, 4, 2, s, sk, d))
+    reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == 1
+    want = attention_plain(q, k, v, causal=causal)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    _close(got, want.float().cpu().numpy(), "bfloat16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 14, 2, 300, 64), (1, 16, 16, 257, 128),
+                                   (2, 4, 1, 100, 32)], ids=_key)
+def test_kernels_take_strided_views_on_the_card(cuda, shape, dtype):
+    """Views of a fused projection, and rows cut from wider ones, go to the
+    kernels as they are; the model-layout entry allocates only its output
+    and returns it as a contiguous [B, S, H, D]."""
+    q, k, v = _torch_inputs(shape, dtype, cuda)
+    want = attention_plain(q, k, v)
+    views = _fused_views(q, k, v)
+    kern = tuple(x.transpose(1, 2) for x in views)
+    got = flash_attention(*kern)
+    assert got.transpose(1, 2).is_contiguous()  # [B, S, H, D], as q's views
+    _close(got, want.float().cpu().numpy(), dtype)
+    # rows that are slices of wider rows (row stride D + 8)
+    wide = tuple(torch.cat([x, torch.zeros_like(x[..., :8])], dim=-1)
+                 for x in (q, k, v))
+    _close(flash_attention(*(x[..., :shape[-1]] for x in wide)),
+            want.float().cpu().numpy(), dtype)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    out = attention(*views, use_kernel=True)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == before + 1
+    assert out.is_contiguous()
+    _close(out.transpose(1, 2), want.float().cpu().numpy(), dtype)
+
+
+@pytest.mark.gpu
 def test_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v = _torch_inputs((1, 4, 2, 128, 64), "float32", cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -202,3 +309,8 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     q48, k48, v48 = (x[..., :48].contiguous() for x in (q, k, v))
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(q48, k48, v48)
+    # the bf16 kernel's TMA loads need strides that are multiples of 8
+    wide = torch.zeros((1, 4, 128, 68), dtype=torch.bfloat16, device=cuda)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_attention(wide[..., :64], k, v)

@@ -9,15 +9,23 @@ the tiles of ``tests/test_kernels.py``). The port's plain version
 CPU tensors takes the plain version on padded inputs) and the batched
 forms must give the same gains bit for bit and the same partners:
 
-  - normal affinities at (T, E) = (128, 8), (300, 60) and (512, 64);
+  - normal affinities at (T, E) = (128, 8), (300, 60) and (512, 64), and
+    at T not a multiple of 64 with E not a multiple of 4, (100, 7) and
+    (77, 13), which the CUDA kernel takes unpadded;
   - affinities rounded to bf16 (ties in the gains);
   - affinities at ``-1e6 + x`` on the experts a token already used (the
     router's second and later rounds, where float32 steps by 0.0625);
   - G = 3 groups of 120 tokens whose last 20 tokens have all-zero
-    affinities (the padded tokens of a routing block).
+    affinities (the padded tokens of a routing block);
+  - every case again with ``assign`` as int64, as ``models/moe.py`` passes
+    it.
 
-The ``gpu`` tests hold the CUDA kernel to the plain version on the card at
-the router's prefill and decode shapes, and skip here.
+The ``gpu`` tests hold the CUDA kernel to the plain version on the card,
+bit for bit, at the router's prefill and decode shapes, at odd T and E,
+with ties, all-masked columns and up to 8 groups, and skip here; on the
+machine with the card:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_router_swap.py
 """
 import numpy as np
 import pytest
@@ -34,7 +42,7 @@ from repro_torch.kernels.router_swap import (  # noqa: E402
 )
 from test_torch_harness import run_reference  # noqa: E402
 
-SHAPES = [(128, 8), (300, 60), (512, 64)]
+SHAPES = [(128, 8), (300, 60), (512, 64), (100, 7), (77, 13)]
 KINDS = ("normal", "bf16", "penalized")
 CASES = [f"{kind}_{t}x{e}" for kind in KINDS for t, e in SHAPES]
 BATCH = dict(g=3, t=120, e=60, real=100)
@@ -135,6 +143,14 @@ def test_padded_matches_jax(ref, name):
     _exact(router_swap_padded(*args, use_kernel=False), ref, name, "ref")
 
 
+@pytest.mark.parametrize("name", CASES)
+def test_int64_assign_matches_jax(ref, name):
+    aff, assign, cur = _port_inputs(ref, name)
+    _exact(router_swap_padded(aff, assign.long(), cur), ref, name, "pallas")
+    gain, part = router_swap(aff[None], assign.long()[None], cur[None])
+    _exact((gain[0], part[0]), ref, name, "ref")
+
+
 def test_cases_have_ties_and_no_partner(ref):
     """The cases exercise the tie rule (some column's max is reached by two
     rows), and a group whose tokens all sit on one expert has no partner
@@ -176,13 +192,19 @@ def test_wrapper_refusals_and_cpu_route():
     cur = torch.zeros(2, 64)
     reset_launch_counts()
     router_swap(aff, assign, cur)  # CPU tensors: the plain version
+    # any T, any E up to 256 and an int64 assign go in unpadded
+    router_swap(aff[:, :60, :6], assign[:, :60].long(), cur[:, :60])
     assert launch_counts()["router_swap"] == 0
-    with pytest.raises(ValueError, match="multiple of 64"):
-        router_swap(aff[:, :60], assign[:, :60], cur[:, :60])
-    with pytest.raises(ValueError, match="multiple of 4"):
-        router_swap(aff[..., :6], assign, cur)
+    with pytest.raises(ValueError, match=r"in \[1, 256\]"):
+        router_swap(torch.zeros(2, 64, 257), assign, cur)
+    with pytest.raises(ValueError, match=r"in \[1, 256\]"):
+        router_swap(aff[..., :0], assign, cur)
     with pytest.raises(ValueError, match="assign"):
-        router_swap(aff, assign.long(), cur)
+        router_swap(aff, assign.short(), cur)
+    with pytest.raises(ValueError, match="assign"):
+        router_swap(aff, assign[:, :60], cur)
+    with pytest.raises(ValueError, match="cur"):
+        router_swap(aff, assign, cur.double())
     with pytest.raises(ValueError, match="affinity"):
         router_swap(aff[0], assign[0], cur[0])
 
@@ -203,17 +225,24 @@ def _bits_equal(got, want):
     assert torch.equal(got[1], want[1])
 
 
+def _on_card(aff, assign, cuda):
+    aff = torch.from_numpy(aff).to(cuda)
+    assign = torch.from_numpy(assign).to(cuda)
+    return aff, assign, torch.gather(aff, 2, assign.long()[..., None])[..., 0]
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("idx", ["int32", "int64"])
 @pytest.mark.parametrize("g,t,e", [(4, 2100, 60), (1, 60, 60), (1, 300, 60),
-                                   (3, 120, 60), (2, 512, 64)])
-def test_kernel_matches_plain_on_the_card(cuda, g, t, e):
+                                   (3, 120, 60), (2, 512, 64), (8, 100, 7),
+                                   (5, 77, 13), (2, 1, 3), (1, 65, 256),
+                                   (3, 200, 1), (8, 2100, 60)])
+def test_kernel_matches_plain_on_the_card(cuda, g, t, e, idx):
     rng = np.random.default_rng(g + t + e)
     aff = _bf16(rng.normal(size=(g, t, e)).astype(np.float32))
     aff[:, t - t // 8:] = 0.0
-    assign = rng.integers(0, e, (g, t)).astype(np.int32)
-    aff = torch.from_numpy(aff).to(cuda)
-    assign = torch.from_numpy(assign).to(cuda)
-    cur = torch.gather(aff, 2, assign.long()[..., None])[..., 0]
+    assign = rng.integers(0, e, (g, t)).astype(idx)
+    aff, assign, cur = _on_card(aff, assign, cuda)
     reset_launch_counts()
     got = router_swap_padded_batched(aff, assign, cur)
     torch.cuda.synchronize()
@@ -221,3 +250,28 @@ def test_kernel_matches_plain_on_the_card(cuda, g, t, e):
     _bits_equal(got, router_swap_plain_batched(aff, assign, cur))
     _bits_equal(got, router_swap_padded_batched(aff, assign, cur,
                                                 use_kernel=False))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,t,e", [(8, 333, 5), (3, 1000, 60)])
+def test_kernel_ties_and_masked_columns_on_the_card(cuda, g, t, e):
+    """Small-integer affinities tie on almost every column; group 0 has all
+    its tokens on one expert (every column masked: gain -inf, partner -1)
+    and group 1 all but one token."""
+    rng = np.random.default_rng(t + e)
+    aff = rng.integers(-2, 3, (g, t, e)).astype(np.float32)
+    assign = rng.integers(0, e, (g, t)).astype(np.int64)
+    assign[0] = 1
+    assign[1] = 0
+    assign[1, 0] = 1
+    aff, assign, cur = _on_card(aff, assign, cuda)
+    got = router_swap_padded_batched(aff, assign, cur)
+    _bits_equal(got, router_swap_plain_batched(aff, assign, cur))
+    gain, part = got
+    assert bool((gain[0] == float("-inf")).all() and (part[0] == -1).all())
+    assert bool((part[1, 1:] == 0).all())
+    a = torch.gather(aff[2], 1, assign[2][None, :].expand(t, t))
+    w = a + a.T - cur[2][:, None] - cur[2][None, :]
+    w = w.masked_fill(assign[2][:, None] == assign[2][None, :], float("-inf"))
+    assert int(((w == gain[2][None, :]) & (gain[2] > float("-inf"))).sum(0)
+               .gt(1).sum()) > 0  # columns whose max two rows reach
