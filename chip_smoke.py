@@ -16,16 +16,27 @@ and prints what it measured:
      seed 0: ``solve()`` with backend "auto" (must resolve to the
      persistent kernel), "cuda" (the sweep kernel once per round) and
      "torch", with identical states and iteration counts; the greedy /
-     MCM / AWAC split; the persistent kernel against its plain version;
+     MCM / AWAC split; the persistent kernel against its plain version,
+     timed to convergence and at ``max_iter=1``, with its device time
+     from ``torch.profiler``;
   3. a batch of 16 instances, n = 65,536, avg_degree 8, kinds cycling
      through ``SUITE_KINDS``: every lane against its own single-instance
      ``solve()``; both kernels against their plain versions on the batch's
      MCM state, where every lane has candidates, with the median time and
-     the bound of each;
+     the bound of each, the sweep's device time (a CUDA graph) and its
+     launches' times (``torch.profiler``), the persistent kernel at
+     ``max_iter=1`` and its device time;
   4. the sweep kernel alone against its plain version on a mid-AWAC state
-     of the phase-2 instance, with the median time of each; then one
-     ``solve()`` of that instance under ``torch.profiler``: the device's
-     busy share and the kernels that take its time;
+     of the phase-2 instance, with the median time of each, its device
+     time and its launches' times. In phases 3 and 4 the sweep kernel is
+     called as the engines call it in a later round, on a scratch that an
+     earlier call on the same edges built (its time is the kernel's
+     "ms"), and as a loop's first call, which builds the row records;
+     in phase 4 the scratch is built on the MCM state and kept for the
+     measured one. Then one ``solve()`` of that instance
+     under ``torch.profiler``: the device's busy share and the kernels
+     that take its time. Phases 2 to 4 also count the 32-byte sectors
+     that the completion lookups touch, a diagnostic beside each bound;
   5. n = 400: ``solve()`` against the exact optimum (ratio >= 2/3);
   6. [lm] qwen2-0.5b (24 layers, d_model 896, bf16, weights drawn from
      seed 0 on the card): ``serve_lm`` with batch 4, a 2,048-token prompt
@@ -241,6 +252,19 @@ def event_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def host_ms(fn, reps: int = 21) -> float:
+    """Median host time of one call of ``fn`` (its work up to the return
+    of its last launch), with the card idle before each call."""
+    times = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    sync()
+    return statistics.median(times)
+
+
 def dev_us(e) -> float:
     """Device time (us) of a ``key_averages()`` row of device kernels."""
     return getattr(e, "self_device_time_total", None) or getattr(
@@ -338,6 +362,101 @@ def loop_bytes(cap: int, n: int, iters) -> tuple[float, float]:
     return read + b * 16 * (n + 1), rounds * 3.0 * cap
 
 
+def lookup_sectors(row, col, rp, mate_row, mate_col, n: int,
+                   active=None) -> tuple[int, int]:
+    """32-byte sectors that one sweep's completion lookups touch on this
+    state, as the kernels read them, and as a lookup through row_ptr
+    without the row records would: per edge (i, j) with m_j matched and
+    i > m_j (the lanes in ``active`` only), the sector of row m_j's
+    16-byte record (the sectors of row_ptr[m_j] and row_ptr[m_j + 1]
+    without records); when bit m_i & 63 of the record's signature is set
+    (always, without records), the sectors of row m_j's columns (all of
+    them: a short row is read whole, a longer one touches fewer) and,
+    when the completion edge exists, of its weight."""
+    b, cap = row.shape
+    r, c = row.long(), col.long()
+    edge = (r >= 0) & (r < n) & (c >= 0) & (c < n)
+    qr = torch.gather(mate_row, 1, c.clamp(0, n)).long()
+    look = edge & (qr >= 0) & (qr < n) & (r > qr)
+    if active is not None:
+        look &= active[:, None]
+    q = qr.clamp(0, max(n - 1, 0))
+    lo = torch.gather(rp, 1, q).long()
+    hi = torch.gather(rp, 1, q + 1).long()
+    lane = torch.arange(b, device=row.device)[:, None]
+    a_lo, a_hi = 4 * (lane * cap + lo), 4 * (lane * cap + hi)
+    cols = torch.where(hi > lo, (a_hi - 1) // 32 - a_lo // 32 + 1, 0)
+    a_ptr = 4 * (lane * (n + 2) + q)
+    ptrs = (a_ptr + 4) // 32 - a_ptr // 32 + 1
+    m_i = torch.gather(mate_col, 1, r.clamp(0, n)).long()
+    # bit c & 63 of row r's signature, for every edge (r, c)
+    bits = torch.zeros(b * (n + 1) * 64, dtype=torch.bool, device=row.device)
+    bits[((lane * (n + 1) + r.clamp(0, n)) * 64 + (c & 63))[edge]] = True
+    maybe = bits[(lane * (n + 1) + q) * 64 + (m_i & 63)]
+    # the completion edge (m_j, m_i) exists: a lookup of its (row, col)
+    # key among the lane's sorted edge keys
+    span = (n + 1) * (n + 1)
+    keys = (lane * span + r * (n + 1) + c).reshape(-1)
+    want = (lane * span + qr.clamp(0, n) * (n + 1) + m_i).reshape(-1)
+    at = torch.searchsorted(keys, want).clamp(max=keys.numel() - 1)
+    found = (keys[at] == want).reshape(b, cap)
+    read = cols + found.long()
+    touched = torch.where(look, 1 + torch.where(maybe, read, 0), 0)
+    unfiltered = torch.where(look, ptrs + read, 0)
+    return int(touched.sum()), int(unfiltered.sum())
+
+
+def sectors_text(sectors: tuple[int, int]) -> str:
+    ms = [s * 32 / HBM_BYTES_PER_S * 1e3 for s in sectors]
+    return (f"lookups {sectors[0]} sectors, {ms[0]:.4f} ms at "
+            f"{HBM_BYTES_PER_S / 1e12} TB/s ({sectors[1]} sectors, "
+            f"{ms[1]:.4f} ms without the row records)")
+
+
+def loop_lookup_sectors(args, mg, go, n: int, ws: int,
+                        iters) -> tuple[int, int]:
+    """``lookup_sectors`` over every round of the AWAC loop: the sweep of
+    round r runs on the state after r rounds (the plain loop's), for the
+    lanes that run it."""
+    row, col, val, rp = args[:4]
+    iters = torch.as_tensor(iters, device=row.device)
+    total = (0, 0)
+    for r in range(int(iters.max()) if iters.numel() else 0):
+        st = args[4:8] if r == 0 else awac_persistent_plain(
+            *args, mg, go, n=n, window_steps=ws, max_iter=r)[:4]
+        s = lookup_sectors(row, col, rp, st[0], st[1], n,
+                           active=go & (iters > r))
+        total = (total[0] + s[0], total[1] + s[1])
+    return total
+
+
+def launch_split(fn, calls: int = 20) -> dict[str, float]:
+    """Device ms per call of each kernel and memset that ``fn`` launches,
+    from a ``torch.profiler`` trace of ``calls`` calls after a warm-up
+    (empty when the profiler recorded no device activity)."""
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        sync()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].strip() or name
+            out[name] = out.get(name, 0.0) + dev_us(e) / 1e3 / calls
+    return out
+
+
+def split_text(split: dict[str, float]) -> str:
+    if not split:
+        return "device time not recorded by the profiler"
+    return ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in
+                     sorted(split.items(), key=lambda kv: -kv[1]))
+
+
 def same_results(a, b, what: str) -> None:
     for k in ("mate_row", "mate_col", "awac_iters", "perfect"):
         require(torch.equal(getattr(a, k), getattr(b, k)),
@@ -426,12 +545,68 @@ def phase_build(log):
     log["card"] = card
 
 
+def single_graph():
+    """The phase-2 instance (``SINGLE``)."""
+    cfg = SINGLE
+    return graph.generate(cfg["n"], avg_degree=cfg["avg_degree"],
+                          kind=cfg["kind"], seed=cfg["seed"])
+
+
+def batch_graphs():
+    """The phase-3 batch (``BATCH``): kinds cycling through SUITE_KINDS."""
+    cfg = BATCH
+    kinds = graph.SUITE_KINDS
+    return [graph.generate(cfg["n"], avg_degree=cfg["avg_degree"],
+                           kind=kinds[i % len(kinds)], seed=i)
+            for i in range(cfg["b"])]
+
+
+def single_inputs(row, col, val, n, st):
+    """The AWAC kernels' inputs for one instance [cap] at state ``st``:
+    ((row, col, val, row_ptr, mate_row, mate_col, u, v) as [1, ...],
+    window_steps)."""
+    rp = row_ptr_from_sorted(row, n)[None]
+    ws = single._resolve_window_steps(row, n, None)
+    return (row[None], col[None], val[None], rp, *(x[None] for x in st)), ws
+
+
+def batch_inputs(row, col, val, n):
+    """The AWAC kernels' inputs for [B, cap] instances at their MCM state:
+    ((row, col, val, row_ptr, mate_row, mate_col, u, v), window_steps)."""
+    mr, mc = batch.greedy_maximal_batched(row, col, val, n)
+    mr, mc = batch.mcm_batched(row, col, val, n, mr, mc)
+    rp = batched_row_ptr_from_sorted(row, n)
+    ws = single._resolve_window_steps(row, n, None)
+    st = batch._state_from_mates_windowed(row, col, val, rp, n, mr, mc, ws)
+    return (row, col, val, rp, *st), ws
+
+
+def sweep_calls(args, mg, n, ws, scratch=None):
+    """K1 on ``args`` as the engines call it: (a later round's call, whose
+    scratch an earlier call on the same edges built; a loop's first call,
+    which builds its row records). One call here on ``scratch`` (a new one
+    by default) builds it or, when an earlier call on these edges did,
+    keeps it, before either is timed."""
+    if scratch is None:
+        from repro_torch.kernels.cycle_gain.awac_sweep import SweepScratch
+        scratch = SweepScratch()
+    awac_sweep_batched(*args, mg, n=n, window_steps=ws, scratch=scratch)
+
+    def later():
+        return awac_sweep_batched(*args, mg, n=n, window_steps=ws,
+                                  scratch=scratch)
+
+    def first():
+        return awac_sweep_batched(*args, mg, n=n, window_steps=ws)
+
+    return later, first
+
+
 def phase_single(log, kernels):
     cfg = SINGLE
     n = cfg["n"]
     t0 = time.perf_counter()
-    g = graph.generate(n, avg_degree=cfg["avg_degree"], kind=cfg["kind"],
-                       seed=cfg["seed"])
+    g = single_graph()
     gen_s = time.perf_counter() - t0
     p = MatchingProblem.from_graph(g)
     print(f"[single] n={n} nnz={g.nnz} cap={g.capacity} kind={cfg['kind']} "
@@ -490,11 +665,9 @@ def phase_single(log, kernels):
                          rest_s=t_pre)
 
     # the persistent kernel against its plain version, from the MCM state
-    rp = row_ptr_from_sorted(row, n)[None]
-    ws = single._resolve_window_steps(row, n, None)
+    args, ws = single_inputs(row, col, val, n, st)
     mg = torch.tensor(MIN_GAIN, dtype=torch.float32, device=row.device)
     go = torch.ones(1, dtype=torch.bool, device=row.device)
-    args = (row[None], col[None], val[None], rp, *(x[None] for x in st))
     got = awac_persistent_batched(*args, mg, go, n=n, window_steps=ws,
                                   max_iter=1000)
     sync()
@@ -509,19 +682,24 @@ def phase_single(log, kernels):
         *args, mg, go, n=n, window_steps=ws, max_iter=1000), 3)
     k2["bound_ms"], k2["bound_by"] = bound_ms(*loop_bytes(g.capacity, n,
                                                           [iters]))
-    print(f"[single] persistent kernel {k2['ms']:.3f} ms, plain "
-          f"{k2['plain_ms']:.3f} ms, bound {k2['bound_ms']:.3f} ms "
-          f"({k2['bound_by']}), {iters} rounds")
+    one_ms = event_ms(lambda: awac_persistent_batched(
+        *args, mg, go, n=n, window_steps=ws, max_iter=1), 5)
+    split = launch_split(lambda: awac_persistent_batched(
+        *args, mg, go, n=n, window_steps=ws, max_iter=1000))
+    sectors = loop_lookup_sectors(args, mg, go, n, ws, [iters])
+    print(f"[single] persistent kernel {k2['ms']:.3f} ms ({one_ms:.3f} ms "
+          f"at max_iter=1), plain {k2['plain_ms']:.3f} ms, bound "
+          f"{k2['bound_ms']:.3f} ms ({k2['bound_by']}), {iters} rounds; "
+          f"device: {split_text(split)}; {sectors_text(sectors)}")
+    log["single"].update(loop_ms=k2["ms"], loop_one_round_ms=one_ms,
+                         loop_device=split, loop_lookup_sectors=sectors)
     return p, st, args, ws, mg, iters
 
 
 def phase_batch(log, kernels):
     cfg = BATCH
     n = cfg["n"]
-    kinds = graph.SUITE_KINDS
-    gs = [graph.generate(n, avg_degree=cfg["avg_degree"],
-                         kind=kinds[i % len(kinds)], seed=i)
-          for i in range(cfg["b"])]
+    gs = batch_graphs()
     pb = MatchingProblem.stack(gs)
     backend.reset_launch_counts()
     rb, t_b = wall(lambda: solve(pb))
@@ -536,11 +714,8 @@ def phase_batch(log, kernels):
                     f"batch lane {i}: {k} differs from its single solve")
     # the persistent kernel against its plain version, from the MCM state
     row, col, val = pb.row, pb.col, pb.val
-    mr, mc = batch.greedy_maximal_batched(row, col, val, n)
-    mr, mc = batch.mcm_batched(row, col, val, n, mr, mc)
-    rp = batched_row_ptr_from_sorted(row, n)
-    ws = single._resolve_window_steps(row, n, None)
-    st = batch._state_from_mates_windowed(row, col, val, rp, n, mr, mc, ws)
+    args, ws = batch_inputs(row, col, val, n)
+    rp, st = args[3], args[4:]
     mg = torch.tensor(MIN_GAIN, dtype=torch.float32, device=row.device)
     go = torch.ones(cfg["b"], dtype=torch.bool, device=row.device)
     go[3] = False  # one lane gated off, as degrade_infeasible does
@@ -570,8 +745,7 @@ def phase_batch_kernels(kernels, row, col, val, rp, st, mg, n, ws, iters):
     args = (row, col, val, rp, *st)
     go = torch.ones(b, dtype=torch.bool, device=row.device)
 
-    def k1():
-        return awac_sweep_batched(*args, mg, n=n, window_steps=ws)
+    k1, k1_first = sweep_calls(args, mg, n, ws)
 
     def p1():
         return awac_sweep_plain(*args, mg, n=n, window_steps=ws)
@@ -584,9 +758,14 @@ def phase_batch_kernels(kernels, row, col, val, rp, st, mg, n, ws, iters):
         return awac_persistent_plain(*args, mg, go, n=n, window_steps=ws,
                                      max_iter=1000)
 
+    want1 = p1()
+    got1 = k1_first()
+    sync()
+    err1 = assert_identical(got1, want1, "batch: sweep kernel vs plain")
     got1 = k1()
     sync()
-    err1 = assert_identical(got1, p1(), "batch: sweep kernel vs plain")
+    err1 = max(err1, assert_identical(got1, want1, "batch: sweep kernel "
+                                      "on a kept scratch vs plain"))
     rooted = int(torch.isfinite(got1[0]).sum())
     require(rooted > 0, "batch: the MCM state has no candidate")
     got2 = k2()
@@ -600,20 +779,42 @@ def phase_batch_kernels(kernels, row, col, val, rp, st, mg, n, ws, iters):
         kv = kernels[name]
         kv["max_abs_err"] = max(kv.get("max_abs_err", 0.0), err)
     out = dict(rooted=rooted, sweep_ms=event_ms(k1, 21),
+               sweep_first_ms=event_ms(k1_first, 21),
+               sweep_host_ms=host_ms(k1),
                sweep_plain_ms=event_ms(p1, 5), loop_ms=event_ms(k2, 5),
-               loop_plain_ms=event_ms(p2, 3), rounds=loop_iters)
+               loop_plain_ms=event_ms(p2, 3), rounds=loop_iters,
+               sweep_device_ms=graph_ms(k1), sweep_split=launch_split(k1),
+               sweep_first_split=launch_split(k1_first),
+               loop_one_round_ms=event_ms(lambda: awac_persistent_batched(
+                   *args, mg, go, n=n, window_steps=ws, max_iter=1), 5),
+               loop_device=launch_split(k2),
+               sweep_lookup_sectors=lookup_sectors(row, col, rp, st[0],
+                                                   st[1], n),
+               loop_lookup_sectors=loop_lookup_sectors(args, mg, go, n, ws,
+                                                       loop_iters))
     out["sweep_bound_ms"], out["sweep_bound_by"] = bound_ms(
         *sweep_bytes(b, cap, n))
     out["loop_bound_ms"], out["loop_bound_by"] = bound_ms(
         *loop_bytes(cap, n, loop_iters))
     print(f"[batch] MCM state: {rooted} rooted columns over {b} lanes; sweep "
-          f"kernel {out['sweep_ms']:.3f} ms (median of 21), plain "
+          f"kernel {out['sweep_ms']:.3f} ms (median of 21; a loop's first "
+          f"call, which builds the row records, {out['sweep_first_ms']:.3f} "
+          f"ms), plain "
           f"{out['sweep_plain_ms']:.3f} ms (median of 5), bound "
           f"{out['sweep_bound_ms']:.4f} ms ({out['sweep_bound_by']}); "
           f"persistent kernel {out['loop_ms']:.3f} ms (median of 5), plain "
           f"{out['loop_plain_ms']:.3f} ms (median of 3), bound "
           f"{out['loop_bound_ms']:.4f} ms ({out['loop_bound_by']}), "
           f"{sum(loop_iters)} lane-rounds; both kernels == plain")
+    print(f"[batch] sweep kernel: device {out['sweep_device_ms']:.4f} ms (a "
+          f"CUDA graph of 20 calls), host {out['sweep_host_ms']:.4f} ms "
+          f"(median of 21); by launch: "
+          f"{split_text(out['sweep_split'])} (a first call: "
+          f"{split_text(out['sweep_first_split'])}); "
+          f"{sectors_text(out['sweep_lookup_sectors'])}")
+    print(f"[batch] persistent kernel: {out['loop_one_round_ms']:.3f} ms at "
+          f"max_iter=1; device: {split_text(out['loop_device'])}; "
+          f"{sectors_text(out['loop_lookup_sectors'])}")
     return out
 
 
@@ -631,24 +832,49 @@ def phase_sweep(log, kernels, single_run):
         mid = awac_persistent_batched(*args, mg, go, n=n, window_steps=ws,
                                       max_iter=rounds)
         margs = args[:4] + tuple(mid[:4])
-    got = awac_sweep_batched(*margs, mg, n=n, window_steps=ws)
-    sync()
-    want = awac_sweep_plain(*margs, mg, n=n, window_steps=ws)
+    # one scratch over two rounds' states, as the engines keep it: built
+    # on the MCM state, kept for the measured one
+    from repro_torch.kernels.cycle_gain.awac_sweep import SweepScratch
+
     k1 = kernels["awac_sweep"]
-    k1["max_abs_err"] = max(k1.get("max_abs_err", 0.0), assert_identical(
-        got, want, "sweep kernel vs plain"))
+    scratch = SweepScratch()
+    if margs is not args:
+        later, _ = sweep_calls(args, mg, n, ws, scratch)
+        k1["max_abs_err"] = max(k1.get("max_abs_err", 0.0), assert_identical(
+            later(), awac_sweep_plain(*args, mg, n=n, window_steps=ws),
+            "sweep kernel vs plain (MCM state)"))
+    later, first = sweep_calls(margs, mg, n, ws, scratch)
+    want = awac_sweep_plain(*margs, mg, n=n, window_steps=ws)
+    for what, call in (("a first call", first), ("a kept scratch", later)):
+        got = call()
+        sync()
+        k1["max_abs_err"] = max(k1.get("max_abs_err", 0.0), assert_identical(
+            got, want, f"sweep kernel vs plain ({what})"))
     rooted = int(torch.isfinite(got[0]).sum())
     require(rooted > 0, "the measured sweep has no candidate")
-    k1["ms"] = event_ms(lambda: awac_sweep_batched(*margs, mg, n=n,
-                                                   window_steps=ws), 21)
+    k1["ms"] = event_ms(later, 21)
+    first_ms = event_ms(first, 21)
     k1["plain_ms"] = event_ms(lambda: awac_sweep_plain(*margs, mg, n=n,
                                                        window_steps=ws), 5)
     k1["bound_ms"], k1["bound_by"] = bound_ms(*sweep_bytes(1, p.cap, n))
+    device_ms, split = graph_ms(later), launch_split(later)
+    host = host_ms(later)
+    first_split = launch_split(first)
+    sectors = lookup_sectors(margs[0], margs[1], margs[3], margs[4],
+                             margs[5], n)
     print(f"[sweep] state after {rounds} of {iters} rounds: {rooted} rooted "
-          f"columns; kernel {k1['ms']:.3f} ms (median of 21), plain "
+          f"columns; kernel {k1['ms']:.3f} ms (median of 21; a loop's first "
+          f"call, which builds the row records, {first_ms:.3f} ms), plain "
           f"{k1['plain_ms']:.3f} ms (median of 5), bound "
           f"{k1['bound_ms']:.3f} ms ({k1['bound_by']})")
-    log["sweep"] = dict(after_rounds=rounds, rooted=rooted)
+    print(f"[sweep] device {device_ms:.4f} ms (a CUDA graph of 20 calls), "
+          f"host {host:.4f} ms (median of 21); by "
+          f"launch: {split_text(split)} (a first call: "
+          f"{split_text(first_split)}); {sectors_text(sectors)}")
+    log["sweep"] = dict(after_rounds=rounds, rooted=rooted, ms=k1["ms"],
+                        first_ms=first_ms, device_ms=device_ms, host_ms=host,
+                        split=split,
+                        first_split=first_split, lookup_sectors=sectors)
 
 
 def phase_quality(log):

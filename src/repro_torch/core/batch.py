@@ -22,6 +22,7 @@ import torch
 from repro_torch.core import single
 from repro_torch.core.constants import MIN_GAIN
 from repro_torch.core.single import F32, I32, NEG, MatchState
+from repro_torch.kernels.cycle_gain.awac_sweep import SweepScratch
 from repro_torch.kernels.cycle_gain.ops import (
     awac_persistent_loop_batched,
     awac_sweep_winners_batched,
@@ -333,7 +334,7 @@ def awac_cwinners_fused_batched(row, col, val, row_ptr, n: int,
 
 
 def _cwinners_batched(backend, row, col, val, row_ptr, n, state, min_gain,
-                      window_steps):
+                      window_steps, scratch=None):
     if backend == "reference":
         per = [single.awac_cwinners(row[b], col[b], val[b], n,
                                     MatchState(*(x[b] for x in state)),
@@ -346,7 +347,8 @@ def _cwinners_batched(backend, row, col, val, row_ptr, n, state, min_gain,
     if backend == "cuda":
         return awac_sweep_winners_batched(
             row, col, val, row_ptr, state.mate_row, state.mate_col, state.u,
-            state.v, min_gain, n=n, window_steps=window_steps)
+            state.v, min_gain, n=n, window_steps=window_steps,
+            scratch=scratch)
     raise ValueError(f"unknown AWAC backend {backend!r}")
 
 
@@ -400,9 +402,11 @@ def awac_batched(row, col, val, n: int, state: MatchState,
             max_iter=max_iter)
         return MatchState(mr, mc, u, v), iters
 
+    scratch = SweepScratch()  # the sweep kernel's, kept across rounds
+
     def cwinners(st):
         return _cwinners_batched(backend, row, col, val, row_ptr, n, st,
-                                 min_gain, window_steps)
+                                 min_gain, window_steps, scratch)
 
     return awac_loop(n, state, max_iter, cwinners, active0=active0)
 

@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.constants import MIN_GAIN
+from repro_torch.kernels.cycle_gain.awac_sweep import SweepScratch
 from repro_torch.kernels.cycle_gain.ops import awac_persistent_loop, awac_sweep_winners
 from repro_torch.sparse.csr import max_row_nnz, row_ptr_from_sorted, window_depth
 from repro_torch.sparse.ops import (
@@ -378,7 +379,7 @@ def awac_cwinners_fused(row, col, val, row_ptr, n: int, state: MatchState,
 
 
 def _cwinners(backend, row, col, val, row_ptr, n, state, min_gain,
-              window_steps):
+              window_steps, scratch=None):
     if backend == "reference":
         return awac_cwinners(row, col, val, n, state, min_gain)
     if backend == "torch":
@@ -387,7 +388,8 @@ def _cwinners(backend, row, col, val, row_ptr, n, state, min_gain,
     if backend == "cuda":
         return awac_sweep_winners(row, col, val, row_ptr, state.mate_row,
                                   state.mate_col, state.u, state.v, min_gain,
-                                  n=n, window_steps=window_steps)
+                                  n=n, window_steps=window_steps,
+                                  scratch=scratch)
     raise ValueError(f"unknown AWAC backend {backend!r}")
 
 
@@ -426,9 +428,11 @@ def _awac_loop(row, col, val, row_ptr, n: int, state: MatchState,
                degrade_infeasible: bool = False):
     go = bool(is_perfect(state, n)) if degrade_infeasible else True
     it = 0
+    scratch = SweepScratch()  # the sweep kernel's, kept across rounds
     while go and it < max_iter:
         Cgain, Ci, Cw1, Cw2 = _cwinners(backend, row, col, val, row_ptr, n,
-                                        state, min_gain, window_steps)
+                                        state, min_gain, window_steps,
+                                        scratch)
         state, n_surv = select_and_augment(n, Cgain, Ci, Cw1, Cw2, state)
         it += 1
         go = bool(n_surv > 0)

@@ -45,9 +45,17 @@ _FLASH_ARGS = [c_ptr] * 4 + [c_int] * 6 + [ctypes.POINTER(c_ll), c_int,
 
 #: argument types of each exported C function, in order
 SIGNATURES = {
-    "awac_sweep": [c_ptr] * 8 + [c_float, c_int, c_ll, c_int] + [c_ptr] * 6,
-    "awac_persistent": [c_ptr] * 9 + [c_float, c_int, c_int, c_ll, c_int]
-    + [c_ptr] * 9,
+    # row, col, val, row_ptr, mate_row, mate_col, u, v, min_gain; B, cap,
+    # n; rec, keys; build; cgain, crow, cw1, cw2, stream
+    "awac_sweep": [c_ptr] * 9 + [c_int, c_ll, c_int] + [c_ptr] * 2
+    + [c_int] + [c_ptr] * 5,
+    # row, col, val, row_ptr, mate_row, mate_col, u, v, go0, min_gain;
+    # max_iter, B, cap, n; mate_row, mate_col, u, v, iters, scratch;
+    # scratch bytes; stream
+    "awac_persistent": [c_ptr] * 10 + [c_int, c_int, c_ll, c_int]
+    + [c_ptr] * 6 + [c_ll, c_ptr],
+    # B, n -> bytes of scratch for awac_persistent
+    "awac_persistent_scratch_bytes": [c_int, c_int],
     "flash_attention_f32": _FLASH_ARGS,
     "flash_attention_bf16": _FLASH_ARGS,
     # aff, assign, cur, gain, partner; G, T, E, idx64; stream
@@ -57,6 +65,9 @@ SIGNATURES = {
     # a, a2, u, v, gain, row; M, N; stream
     "cycle_gain": [c_ptr] * 6 + [c_int] * 2 + [c_ptr],
 }
+
+#: return types other than int (a ``cudaError_t``)
+RESTYPES = {"awac_persistent_scratch_bytes": c_ll}
 
 _LIB = None
 #: what the last build did: {"seconds", "library", "ptxas", "cached"}
@@ -134,9 +145,20 @@ def library() -> ctypes.CDLL:
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = c_int
+            fn.restype = RESTYPES.get(name, c_int)
         _LIB = lib
     return _LIB
+
+
+def stream(dev: torch.device) -> int:
+    """The handle of torch's current stream on ``dev``, for a launch. The
+    raw getter, where torch has it, skips building a ``torch.cuda.Stream``
+    object: microseconds on the launch path of a kernel that runs for
+    about a hundred."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None or dev.index is None:
+        return torch.cuda.current_stream(dev).cuda_stream
+    return raw(dev.index)
 
 
 def check(err: int, name: str) -> None:

@@ -47,26 +47,30 @@ def swap_gains(affinity, assign_expert, tok_affinity, *,
 
 
 def awac_sweep_winners_batched(row, col, val, row_ptr, mate_row, mate_col, u,
-                               v, min_gain, *, n: int, window_steps: int):
+                               v, min_gain, *, n: int, window_steps: int,
+                               scratch=None):
     """Steps A+B+C of one round via the sweep kernel. Same contract as
     ``core.batch.awac_cwinners_fused_batched``: (Cgain [B, n], Ci [B, n]
-    (sentinel n if no candidate), Cw1, Cw2), bit-identical to it."""
+    (sentinel n if no candidate), Cw1, Cw2), bit-identical to it.
+    ``scratch`` (``awac_sweep.SweepScratch``) keeps the kernel's row
+    records from one round to the next."""
     Cgain, Crow, Cw1, Cw2 = awac_sweep_batched(
         row, col, val, row_ptr, mate_row, mate_col, u, v, min_gain, n=n,
-        window_steps=window_steps)
+        window_steps=window_steps, scratch=scratch)
     has = Cgain > NEG
     Ci = torch.where(has, Crow, n)
     return Cgain, Ci, torch.where(has, Cw1, 0.0), torch.where(has, Cw2, 0.0)
 
 
 def awac_sweep_winners(row, col, val, row_ptr, mate_row, mate_col, u, v,
-                       min_gain, *, n: int, window_steps: int):
+                       min_gain, *, n: int, window_steps: int,
+                       scratch=None):
     """Single-instance ``awac_sweep_winners_batched``: the [n] winners
     ``core.single.awac_cwinners`` returns."""
     out = awac_sweep_winners_batched(
         row[None], col[None], val[None], row_ptr[None], mate_row[None],
         mate_col[None], u[None], v[None], min_gain, n=n,
-        window_steps=window_steps)
+        window_steps=window_steps, scratch=scratch)
     return tuple(x[0] for x in out)
 
 

@@ -20,7 +20,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import backend
-from repro_torch.kernels.cycle_gain.awac_sweep import _check_inputs
+from repro_torch.kernels.cycle_gain.awac_sweep import (
+    _check_inputs,
+    device_scalar,
+)
 from repro_torch.sparse.ops import INT32_MAX
 
 #: launches of the CUDA kernel since the last ``backend.reset_launch_counts``
@@ -55,29 +58,30 @@ def _launch(row, col, val, row_ptr, mate_row, mate_col, u, v, min_gain, go0,
                          f"{row.device}")
     b, cap = row.shape
     dev = row.device
-    edges = [x.contiguous() for x in (row, col, val, row_ptr)]
-    state = [x.clone(memory_format=torch.contiguous_format)
-             for x in (mate_row, mate_col, u, v)]
-    go = go0.to(_I32).contiguous()
-    keys = torch.zeros((b, n), dtype=torch.int64, device=dev)
-    dkeys = torch.zeros((b, n), dtype=torch.int64, device=dev)
-    mask = torch.zeros((b, n), dtype=_I32, device=dev)
-    fb = torch.zeros(b, dtype=torch.int64, device=dev)
-    surv = torch.zeros(b, dtype=_I32, device=dev)
-    active = torch.zeros((2, b), dtype=_I32, device=dev)
-    nact = torch.zeros(2, dtype=_I32, device=dev)
-    iters = torch.zeros(b, dtype=_I32, device=dev)
+    ins = [x if x.is_contiguous() else x.contiguous()
+           for x in (row, col, val, row_ptr, mate_row, mate_col, u, v)]
+    go = (go0 if go0.dtype == torch.bool else go0 != 0).contiguous()
+    mg = device_scalar(min_gain, dev)
     lib = backend.library()
+    # the kernel copies the state in and writes the final state and the
+    # rounds here, each array 16-byte aligned; it sets its scratch itself
+    size = b * (n + 1)
+    stride = -(-size // 4) * 4
+    out = torch.empty(4 * stride + b, dtype=_I32, device=dev)
+    state = [out[k * stride:k * stride + size].view(b, n + 1)
+             for k in range(4)]
+    state[2:] = [x.view(torch.float32) for x in state[2:]]
+    iters = out[4 * stride:]
+    nbytes = lib.awac_persistent_scratch_bytes(b, n)
+    scratch = torch.empty((nbytes + 7) // 8, dtype=torch.int64, device=dev)
     # the launch is asynchronous on torch's current stream; tensors freed
     # when this returns go back to the caching allocator, which hands
     # their memory out again only to work ordered after the kernel
-    stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.awac_persistent(
-        *(x.data_ptr() for x in edges + state), go.data_ptr(),
-        float(min_gain), int(min(max(max_iter, 0), INT32_MAX)), b, cap, n,
-        keys.data_ptr(), dkeys.data_ptr(), mask.data_ptr(), fb.data_ptr(),
-        surv.data_ptr(), active.data_ptr(), nact.data_ptr(),
-        iters.data_ptr(), stream)
+        *(x.data_ptr() for x in ins), go.data_ptr(), mg.data_ptr(),
+        int(min(max(max_iter, 0), INT32_MAX)), b, cap, n,
+        *(x.data_ptr() for x in state), iters.data_ptr(), scratch.data_ptr(),
+        scratch.numel() * 8, backend.stream(dev))
     launches += 1
     backend.check(err, "awac_persistent")
     return (*state, iters)

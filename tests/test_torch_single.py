@@ -11,7 +11,10 @@ instance under ``degrade_infeasible``), on identical inputs:
     of the two kernels (backends ``cuda`` / ``cuda_persistent`` on a CPU
     tensor) against JAX ``pallas`` / ``pallas_persistent`` (interpreted);
   - the sweep alone (K1's plain version) and the whole loop alone (K2's)
-    against the Pallas kernels' wrappers.
+    against the Pallas kernels' wrappers;
+  - the sweep re-derived the way the CUDA kernels reduce it (one 64-bit
+    key per column, its low word the winning edge's position) against the
+    Pallas sweep, and the property that derivation rests on.
 
 Mates, duals, winners and iteration counts are compared exactly.
 """
@@ -22,11 +25,19 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import graph, single  # noqa: E402
 from repro_torch.core.convert import state_from_numpy  # noqa: E402
+from repro_torch.kernels.cycle_gain.awac_sweep import (  # noqa: E402
+    SweepScratch,
+    awac_sweep_batched,
+)
 from repro_torch.kernels.cycle_gain.ops import (  # noqa: E402
     awac_persistent_loop,
     awac_sweep_winners,
 )
+from repro_torch.kernels.cycle_gain.persistent import (  # noqa: E402
+    awac_persistent_batched,
+)
 from repro_torch.sparse.csr import row_ptr_from_sorted  # noqa: E402
+from repro_torch.sparse.ops import NEG  # noqa: E402
 from test_torch_harness import run_reference  # noqa: E402
 
 N = 120
@@ -253,3 +264,138 @@ def test_cases_exercise_what_they_name(ref):
     sel = ref["gain_ties__select__mate_row"]
     assert sel[4] == 7 and sel[5] == 5  # column 4 won the e2 column 7
     assert iters["gain_ties"] > 1
+
+
+def _position_key_sweep(row, col, val, n, mate_row, mate_col, u, v,
+                        min_gain):
+    """Steps A+B+C as the CUDA kernels reduce them, in plain torch: per
+    candidate edge at position pos the key (gain key << 32) | ~pos, with
+    the gain mapped to an order-preserving uint32; the largest key per
+    column (reduced as int64 with the top bit flipped, so that a signed
+    max orders it as unsigned); then the winner's row and w1 read at pos
+    and w2 looked up again for the winner alone. Returns (Cgain, Ci, Cw1,
+    Cw2) with the engines' sentinels."""
+    cap = row.numel()
+    r, c = row.long(), col.long()
+    pos = torch.arange(cap)
+    edge = (r >= 0) & (r < n) & (c >= 0) & (c < n)
+    # the completion edge (m_j, m_i) of every edge, by its (row, col) key
+    keys = r * (n + 1) + c
+
+    def lookup(i, j):
+        want = i * (n + 1) + j
+        at = torch.searchsorted(keys, want).clamp(max=cap - 1)
+        return keys[at] == want, at
+
+    qr = mate_row.long()[c.clamp(0, n)]
+    m_i = mate_col.long()[r.clamp(0, n)]
+    shape = edge & (qr >= 0) & (qr < n) & (r > qr)
+    found, at = lookup(qr.clamp(0, n), m_i)
+    w2 = torch.where(found, val[at], 0.0)
+    gain = ((val + w2) - u[r.clamp(0, n)]) - v[c.clamp(0, n)]
+    cand = shape & found & (gain > min_gain)
+    bits = gain.view(torch.int32).long() & 0xFFFFFFFF
+    gkey = torch.where(bits >= 2**31, ~bits & 0xFFFFFFFF, bits ^ 2**31)
+    low = ~pos & 0xFFFFFFFF
+    # (gkey << 32 | low) with bit 63 flipped, as a signed int64
+    skey = ((gkey ^ 2**31) - 2**31) * 2**32 + low
+    empty = -2**63  # key 0
+    best = torch.full((n,), empty, dtype=torch.int64).scatter_reduce(
+        0, c.clamp(0, n - 1)[cand], skey[cand], reduce="amax")
+    has = best != empty
+    hi = (best >> 32) + 2**31  # the high word, unflipped back below
+    gk = hi ^ 2**31
+    gbits = torch.where(gk >= 2**31, gk ^ 2**31, ~gk & 0xFFFFFFFF)
+    cgain = torch.where(has, (gbits - (gbits >= 2**31).long() * 2**32)
+                        .to(torch.int32).view(torch.float32), NEG)
+    win = torch.where(has, 0xFFFFFFFF - (best & 0xFFFFFFFF), 0)
+    ci = torch.where(has, r[win], n).to(torch.int32)
+    cw1 = torch.where(has, val[win], 0.0)
+    j = torch.arange(n)
+    f2, at2 = lookup(mate_row.long()[j], mate_col.long()[r[win].clamp(0, n)])
+    assert bool((f2 | ~has).all())  # every winner's completion edge exists
+    cw2 = torch.where(has, val[at2], 0.0)
+    return cgain, ci, cw1, cw2
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_position_key_sweep_matches_pallas(ref, name):
+    row, col, val = _edges(name)
+    st = _state(ref, name, "start")
+    win = _position_key_sweep(row, col, val, N, *st,
+                              torch.tensor(1e-6, dtype=torch.float32))
+    _assert_equal(ref, name, "sweep", win, WINNERS)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_edge_position_grows_with_row_in_each_column(name):
+    """The kernels' winner key carries the edge's position in place of
+    its row: that picks the same winner on a gain tie only if, inside
+    each column, the position grows with the row (lex-sorted edges with
+    unique (row, col) pairs)."""
+    row, col, _ = _edges(name)
+    real = (row < N).nonzero().flatten()
+    order = torch.sort(col[real], stable=True).indices
+    c, r = col[real][order], row[real][order]
+    same_col = c[1:] == c[:-1]
+    assert bool((r[1:][same_col] > r[:-1][same_col]).all())
+
+
+@pytest.mark.parametrize("entry", ["sweep", "loop"])
+def test_kernel_wrappers_refuse_positions_past_int32(entry):
+    """An instance's edge positions must fit the low 32 bits of a winner
+    key: both kernel wrappers refuse cap >= 2**31 on any device (meta
+    tensors here, so nothing is allocated)."""
+    n, cap = 4, 2**31
+    meta = dict(device="meta")
+    edges = (torch.empty((1, cap), dtype=torch.int32, **meta),
+             torch.empty((1, cap), dtype=torch.int32, **meta),
+             torch.empty((1, cap), dtype=torch.float32, **meta),
+             torch.empty((1, n + 2), dtype=torch.int32, **meta))
+    state = (torch.empty((1, n + 1), dtype=torch.int32, **meta),
+             torch.empty((1, n + 1), dtype=torch.int32, **meta),
+             torch.empty((1, n + 1), dtype=torch.float32, **meta),
+             torch.empty((1, n + 1), dtype=torch.float32, **meta))
+    mg = torch.tensor(1e-6, dtype=torch.float32)
+    with pytest.raises(ValueError, match=r"2\*\*31"):
+        if entry == "sweep":
+            awac_sweep_batched(*edges, *state, mg, n=n, window_steps=3)
+        else:
+            awac_persistent_batched(*edges, *state, mg,
+                                    torch.ones(1, dtype=torch.bool, **meta),
+                                    n=n, window_steps=3, max_iter=10)
+
+
+@pytest.mark.parametrize("change", ["none", "view", "col_written",
+                                    "rp_written", "other_col", "unbuilt",
+                                    "other_size"])
+def test_sweep_scratch_is_rebuilt_only_for_other_edges(change):
+    """The sweep kernel's scratch keeps its row records from one call to
+    the next only while the edges are the same: the same memory, shape and
+    strides, not written since (a [1, ...] view of them, as the
+    single-instance entry passes each round, counts as the same), and the
+    last call marked it built. The scratch logic is device-free, so it is
+    held here on CPU tensors."""
+    row, col, _ = _edges("uniform")
+    col, rp = col[None].clone(), row_ptr_from_sorted(row, N)[None].clone()
+    words = 3 * N
+    s = SweepScratch()
+    buf, build, tags = s.take(col, rp, words)
+    assert build and buf.numel() == words
+    s.built(col, rp, tags)
+    col2, rp2 = col, rp
+    if change == "view":
+        col2, rp2 = col[0][None], rp[0][None]
+    elif change == "col_written":
+        col.add_(0)
+    elif change == "rp_written":
+        rp.add_(0)
+    elif change == "other_col":
+        col2 = col.clone()
+    elif change == "unbuilt":
+        s.take(col, rp, words)  # a call that failed before ``built``
+    elif change == "other_size":
+        words += 3
+    again, build, _ = s.take(col2, rp2, words)
+    assert build == (change not in ("none", "view"))
+    assert (again is buf) == (change != "other_size")
