@@ -67,10 +67,17 @@ and prints what it measured:
   9. [embedding_bag] the EmbeddingBag kernel (K6) through
      ``models.recsys.embedding.embedding_bag(use_kernel=True)`` on the
      served model's own item table: the ``serve_p99`` batch's sequences
-     and a ``serve_bulk``-sized set (262,144 bags of 200) as bags, 10% of
-     the entries padding, against its plain version within 1e-5, with
-     bags of padding only and an index V; timed beside its bound, its
-     plain version and ``torch.nn.functional.embedding_bag``;
+     (route A, slices) and a ``serve_bulk``-sized set (262,144 bags of
+     200; route B, the window sweep) as bags, 10% of the entries padding,
+     one launch a call; each against its plain version within 1e-5 and
+     bit for bit against a second call, with bags of padding only and an
+     index V through each route; the route and its parameters and the
+     kernels' registers and spills; each shape timed by CUDA events and
+     by a CUDA graph of 20 calls beside its bound, its plain version and
+     ``torch.nn.functional.embedding_bag``; the L2 yardstick (the bulk
+     bags folded into the first window, and the windows a block may keep
+     hot, through route A) and route B's split of one bulk call into its
+     sort, wait, walk and write phases;
  10. [cycle_gain] the dense cycle-gain kernel (K3) through
      ``cycle_gain_padded`` bit for bit against its plain version on
      ``bench_kernels.py``'s 512 x 512 tile, a 16,384 x 16,384 pair at
@@ -112,6 +119,7 @@ import copy
 import ctypes
 import dataclasses
 import gc
+import importlib
 import json
 import pathlib
 import statistics
@@ -154,6 +162,8 @@ from repro_torch.kernels.cycle_gain.persistent import (  # noqa: E402
 )
 from repro_torch.kernels.cycle_gain.ref import cycle_gain_plain  # noqa: E402
 from repro_torch.kernels.embedding_bag import embedding_bag_plain  # noqa: E402
+# the wrapper module of K6 (its package exports a function of that name)
+K6 = importlib.import_module("repro_torch.kernels.embedding_bag.embedding_bag")
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention,
     attention_plain,
@@ -1250,9 +1260,39 @@ def padded_bags(idx, gen, pad: float):
                                            device=idx.device)
 
 
+def ptxas_summary(source: str) -> list[str]:
+    """Each kernel of ``source`` in the build log, with its registers and
+    spills (empty when the library came from an earlier build)."""
+    part = backend.BUILD_INFO.get("ptxas", "").split(f"== {source}")
+    if len(part) < 2:
+        return []
+    out, name = [], None
+    for ln in part[1].split("\n== ")[0].splitlines():
+        if "entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif "spill" in ln and name:
+            spills = ln.strip()
+        elif "registers" in ln and name:
+            regs = ln.split(":", 1)[-1].strip()
+            out.append(f"{name}: {regs}; {spills}")
+            name = None
+    return out
+
+
+def bag_route_text(plan, d: int) -> str:
+    if plan.route == "A":
+        return f"route A, {plan.slices} slices a bag, {plan.blocks} blocks"
+    return (f"route B, {plan.windows} windows of {plan.window_rows} rows "
+            f"({plan.window_rows * d * 4 / 2**20:.2f} MiB), {plan.passes} "
+            f"passes of {plan.bags_per_block} bags x {plan.blocks} blocks, "
+            f"{plan.smem_bytes} B of shared memory, "
+            f"scratch {plan.scratch_bytes / 1e6:.1f} MB")
+
+
 def phase_embedding_bag(log, kernels, model, seqs):
     """K6 through the recsys layer's ``embedding_bag(use_kernel=True)`` on
-    the served model's own item table."""
+    the served model's own item table: route A on the ``serve_p99`` bags,
+    route B on the ``serve_bulk`` bags."""
     dev = torch.device("cuda")
     table = model.items.detach()
     v, d = table.shape
@@ -1263,6 +1303,11 @@ def phase_embedding_bag(log, kernels, model, seqs):
     big = padded_bags(torch.randint(0, cfg.n_items, (bulk, cfg.seq_len),
                                     generator=gen, device=dev), gen,
                       BAGS["pad"])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bags = {"serve_p99": p99, "serve_bulk": big}
+    plans = {k: K6.plan_route(*x[0].shape, v, d, sms) for k, x in bags.items()}
+    require((plans["serve_p99"].route, plans["serve_bulk"].route)
+            == ("A", "B"), f"[embedding_bag] routes {plans}")
 
     # the path, as a user calls it; the counts are read right after
     backend.reset_launch_counts()
@@ -1271,44 +1316,62 @@ def phase_embedding_bag(log, kernels, model, seqs):
     counts = backend.launch_counts()
     require(counts["embedding_bag"] == 2,
             f"[embedding_bag] {counts['embedding_bag']} kernel launches for "
-            f"two calls: {counts}")
+            f"two calls (one a call, either route): {counts}")
     kernels["embedding_bag"]["launches"] = counts["embedding_bag"]
     sync()
 
     tol = BAGS["tol"]
-    k6 = kernels["embedding_bag"]
-    k6["max_abs_err"] = 0.0
+    k6log = kernels["embedding_bag"]
+    k6log["max_abs_err"] = 0.0
 
     def hold(got, idx, w, what):
         want = embedding_bag_plain(idx, w, table)
         err = float((got - want).abs().max())
         require(torch.allclose(got, want, rtol=tol, atol=tol),
                 f"[embedding_bag] {what}: kernel differs from plain by {err}")
-        k6["max_abs_err"] = max(k6["max_abs_err"], err)
+        k6log["max_abs_err"] = max(k6log["max_abs_err"], err)
 
-    hold(out_p99, *p99, "serve_p99 bags")
+    hold(out_p99, *p99, "serve_p99 bags (route A)")
     for c in range(0, bulk, BAGS["chunk"]):
         sl = slice(c, c + BAGS["chunk"])
-        hold(out_big[sl], big[0][sl], big[1][sl], f"bulk bags {c}..")
-    # bags of padding only, and an index V (clipped to row V - 1)
-    idx, w = (x[:64].clone() for x in p99)
-    idx[3], idx[10] = -1, -1
-    idx[5, 7], idx[6, 0] = v, v
-    got = embedding.embedding_bag(table, idx, w, use_kernel=True)
-    sync()
-    hold(got, idx, w, "padding-only bags and index V")
-    require(bool((got[[3, 10]] == 0).all()),
-            "[embedding_bag] a bag of padding only is not exactly 0")
+        hold(out_big[sl], big[0][sl], big[1][sl],
+             f"bulk bags {c}.. (route B)")
+    # two calls give identical bits
+    for what, (idx, w), first in (("serve_p99", p99, out_p99),
+                                  ("serve_bulk", big, out_big)):
+        again = embedding.embedding_bag(table, idx, w, use_kernel=True)
+        require(torch.equal(again, first),
+                f"[embedding_bag] {what}: two calls differ")
+    del again
+    # bags of padding only, and an index V (clipped to row V - 1), through
+    # each route
+    for what, (idx, w) in (("route A", (x[:64] for x in p99)),
+                           ("route B", big)):
+        idx = idx.clone()
+        idx[3], idx[10] = -1, -1
+        idx[5, 7], idx[6, 0] = v, v
+        got = embedding.embedding_bag(table, idx, w, use_kernel=True)
+        sync()
+        hold(got, idx, w, f"{what}: padding-only bags and index V")
+        require(bool((got[[3, 10]] == 0).all()),
+                f"[embedding_bag] {what}: a bag of padding only is not "
+                "exactly 0")
+        del got, idx
     print(f"[embedding_bag] table {tuple(table.shape)}: serve_p99 bags "
           f"{tuple(p99[0].shape)} and bulk bags {tuple(big[0].shape)} (10% "
           f"padding): kernel == plain within {tol} (max abs err "
-          f"{k6['max_abs_err']!r}); padding-only bags exactly 0; index V "
-          f"reads row V - 1")
+          f"{k6log['max_abs_err']!r}); two calls bit for bit identical; "
+          "padding-only bags exactly 0; index V reads row V - 1, through "
+          "both routes")
+    regs = ptxas_summary("embedding_bag.cu")
+    for ln in regs:
+        print(f"[embedding_bag] ptxas {ln}")
 
     # timed, with the library call as a yardstick: -1 mapped to row 0 at
     # weight 0, prepared outside the timed call
     rows = []
-    for what, (idx, w) in (("serve_p99", p99), ("serve_bulk", big)):
+    for what, (idx, w) in bags.items():
+        plan = plans[what]
         lib_idx = idx.clamp(0, v - 1)
         lib_w = torch.where(idx >= 0, w, 0.0)
         lib = torch.nn.functional.embedding_bag(
@@ -1317,31 +1380,83 @@ def phase_embedding_bag(log, kernels, model, seqs):
                                rtol=tol, atol=tol),
                 f"[embedding_bag] {what}: the library call disagrees")
         del lib
-        row = dict(shape=tuple(idx.shape), ms=event_ms(
-            lambda: embedding.embedding_bag(table, idx, w, use_kernel=True),
-            21))
+
+        def call(idx=idx, w=w):
+            return embedding.embedding_bag(table, idx, w, use_kernel=True)
+
+        def library(lib_idx=lib_idx, lib_w=lib_w):
+            return torch.nn.functional.embedding_bag(
+                lib_idx, table, mode="sum", per_sample_weights=lib_w)
+
+        row = dict(shape=tuple(idx.shape), plan=dataclasses.asdict(plan),
+                   ms=event_ms(call, 21), device_ms=graph_ms(call))
         row["plain_ms"] = event_ms(lambda: embedding_bag_plain(idx, w, table),
                                    3)
-        row["library_ms"] = event_ms(
-            lambda: torch.nn.functional.embedding_bag(
-                lib_idx, table, mode="sum", per_sample_weights=lib_w), 21)
+        row["library_ms"] = event_ms(library, 21)
+        row["library_device_ms"] = graph_ms(library)
         nbytes, ops, gathered = bag_bytes(idx, d, v)
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops)
         row["gathered_gb"] = gathered / 1e9
         row["gathered_bound_ms"] = (nbytes - min(gathered, 4.0 * v * d)
                                     + gathered) / HBM_BYTES_PER_S * 1e3
         rows.append(row)
-        print(f"[embedding_bag] {what} {row['shape']}: kernel "
-              f"{row['ms']:.4f} ms (median of 21), plain "
-              f"{row['plain_ms']:.3f} ms (median of 3), "
-              f"F.embedding_bag {row['library_ms']:.4f} ms (median of 21); "
-              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, the table "
-              f"read at most once); gathered rows {row['gathered_gb']:.3f} "
-              f"GB, {row['gathered_bound_ms']:.4f} ms if every gathered row "
-              "came from device memory")
+        print(f"[embedding_bag] {what} {row['shape']}, "
+              f"{bag_route_text(plan, d)}: kernel {row['ms']:.4f} ms "
+              f"(events, median of 21), device {row['device_ms']:.4f} ms "
+              f"(CUDA graph of 20); plain {row['plain_ms']:.3f} ms (median "
+              f"of 3); F.embedding_bag {row['library_ms']:.4f} ms, device "
+              f"{row['library_device_ms']:.4f} ms; bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}, the table read "
+              f"at most once); gathered rows {row['gathered_gb']:.3f} GB, "
+              f"{row['gathered_bound_ms']:.4f} ms if every gathered row came "
+              "from device memory")
+    log["embedding_bag"] = dict(rows=rows, max_abs_err=k6log["max_abs_err"],
+                                ptxas=regs)
+    log["embedding_bag"].update(bag_bulk_split(table, *big, plans["serve_bulk"]))
     for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"):
-        k6[key] = rows[-1][key]
-    log["embedding_bag"] = dict(rows=rows, max_abs_err=k6["max_abs_err"])
+        k6log[key] = rows[-1][key]
+
+
+def bag_bulk_split(table, idx, w, plan) -> dict:
+    """Route B at ``serve_bulk``: the L2 yardstick (route A, one slice a
+    bag, on the bags folded into the table's first window, which the L2
+    holds) and the per-block split of one call into sort, wait, walk and
+    write."""
+    v, d = table.shape
+    yard = dataclasses.replace(plan, route="A", slices=1, windows=1,
+                               window_rows=v, passes=1, bags_per_block=8,
+                               blocks=(idx.shape[0] + 7) // 8, smem_bytes=0,
+                               scratch_bytes=0)
+    rows = plan.window_rows
+    folded = torch.where(idx >= 0, idx % rows, idx).to(torch.int32)
+    got = K6._launch(folded, w, table, yard)
+    require(torch.allclose(got, embedding_bag_plain(folded, w, table),
+                           rtol=BAGS["tol"], atol=BAGS["tol"]),
+            "[embedding_bag] the folded bags disagree")
+    del got
+    out = dict(yardstick_mib=rows * d * 4 / 2**20, yardstick_ms=graph_ms(
+        lambda: K6._launch(folded, w, table, yard)))
+    del folded
+    print(f"[embedding_bag] L2 yardstick: the bulk bags folded into the "
+          f"first {rows} rows ({out['yardstick_mib']:.2f} MiB, one window) "
+          f"through route A, one slice a bag: device "
+          f"{out['yardstick_ms']:.4f} ms (CUDA graph of 20)")
+    split = torch.zeros((plan.blocks, 4), dtype=torch.int64,
+                        device=table.device)
+    K6._launch(idx, w, table, plan, split)  # warm
+    split.zero_()
+    _, t = wall(lambda: K6._launch(idx, w, table, plan, split))
+    us = (split.double() / 1e3).cpu()
+    names = ("sort", "wait", "walk", "write")
+    out["split_us"] = {n: dict(mean=float(us[:, i].mean()),
+                               max=float(us[:, i].max()))
+                       for i, n in enumerate(names)}
+    print(f"[embedding_bag] route B split of one bulk call ({t * 1e3:.3f} ms "
+          f"host, sync to sync), per block mean / max over {plan.blocks}: "
+          + ", ".join(f"{n} {x['mean']:.1f} / {x['max']:.1f} us"
+                      for n, x in out["split_us"].items())
+          + f"; {plan.passes * plan.windows} window steps")
+    return out
 
 
 def tile_inputs(kind: str, m: int, n: int, gen):

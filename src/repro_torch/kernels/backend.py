@@ -60,8 +60,9 @@ SIGNATURES = {
     "flash_attention_bf16": _FLASH_ARGS,
     # aff, assign, cur, gain, partner; G, T, E, idx64; stream
     "router_swap": [c_ptr] * 5 + [c_int] * 4 + [c_ptr],
-    # idx, w, table, out; B, L, V, D; stream
-    "embedding_bag": [c_ptr] * 4 + [c_int] * 4 + [c_ptr],
+    # idx, w, table, out; B, L, V, D; route, slices, windows, window_rows,
+    # passes, bags_per_block, blocks, smem; scratch, split, stream
+    "embedding_bag": [c_ptr] * 4 + [c_int] * 12 + [c_ptr] * 3,
     # a, a2, u, v, gain, row; M, N; stream
     "cycle_gain": [c_ptr] * 6 + [c_int] * 2 + [c_ptr],
 }
@@ -99,7 +100,9 @@ def build() -> pathlib.Path:
     out_dir = BUILD_ROOT / f"kernels-{_digest()}"
     lib = out_dir / LIB_NAME
     if lib.exists():
-        BUILD_INFO.update(seconds=0.0, library=str(lib), cached=True)
+        log = out_dir / "ptxas.log"
+        BUILD_INFO.update(seconds=0.0, library=str(lib), cached=True,
+                          ptxas=log.read_text() if log.exists() else "")
         return lib
     nvcc = _nvcc()
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)

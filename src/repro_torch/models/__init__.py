@@ -7,7 +7,9 @@ from __future__ import annotations
 
 def build_defs(cfg, device=None, seed: int = 0):
     """The parameters of ``cfg``'s model, drawn from ``seed`` on
-    ``device``. The JAX package returns parameter definitions here and
+    ``device``: ``None`` means the card, and without one this raises
+    (``core.single.resolve_device``; pass ``device="cpu"`` to build on the
+    CPU). The JAX package returns parameter definitions here and
     materialises them apart; a torch module is built with its weights."""
     if cfg.family == "lm":
         from repro_torch.models.transformer import LM

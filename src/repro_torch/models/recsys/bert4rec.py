@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.core.single import resolve_device
 from repro_torch.models.layers import Dense, GeluMLP, LayerNorm
 from repro_torch.models.param import embed_init, generator
 from repro_torch.models.recsys.embedding import lookup, table
@@ -60,13 +61,15 @@ class Block(nn.Module):
 
 class Bert4Rec(nn.Module):
     """The parameters of ``bert4rec_def``, drawn from ``seed`` on
-    ``device`` (``models.param``), and the serving entries."""
+    ``device`` (``models.param``; ``None`` means the card, and without one
+    the constructor raises), and the serving entries."""
 
     def __init__(self, cfg, device=None, seed: int = 0):
         super().__init__()
         self.cfg = cfg
         d = cfg.embed_dim
-        gen = generator(seed, device or "cpu")
+        device = resolve_device(device)
+        gen = generator(seed, device)
         self.items = table(cfg.padded_items, d, device=device, gen=gen)
         self.pos = nn.Parameter(embed_init(
             torch.empty(cfg.seq_len, d, device=device), gen, 0.02))

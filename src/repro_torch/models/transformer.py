@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.core.single import resolve_device
 from repro_torch.models.attention import (
     Attention,
     decode_attention,
@@ -47,12 +48,15 @@ class LM(nn.Module):
     """The parameters of ``lm_def``: ``embed`` [V, d], the block groups
     (``blocks``, or ``dense_blocks`` and ``moe_blocks``), ``final_norm``
     and, without tied embeddings, ``lm_head``. All float32, drawn from
-    ``seed`` on ``device`` (``models.param``)."""
+    ``seed`` on ``device`` (``models.param``): ``None`` means the card,
+    and without one the constructor raises (``device="cpu"`` builds on
+    the CPU)."""
 
     def __init__(self, cfg, device=None, seed: int = 0):
         super().__init__()
         self.cfg = cfg
-        gen = generator(seed, device or "cpu")
+        device = resolve_device(device)
+        gen = generator(seed, device)
         self.embed = nn.Parameter(embed_init(
             torch.empty(cfg.vocab, cfg.d_model, device=device), gen, 0.02))
         md = cfg.moe

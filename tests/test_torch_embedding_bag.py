@@ -19,9 +19,19 @@ bar: sums in another order):
     V - 1, its Pallas kernel gives them no row. The port follows the plain
     path in both its versions; the test pins the JAX disagreement.
 
+The kernel's two routes are chosen by ``plan_route`` from (B, L, V, D)
+and the SM count; its CPU tests pin the choice (``serve_p99`` takes route
+A, ``serve_bulk`` route B, the boundary at one bag per warp of route B's
+grid) and the validity of the parameters at extreme shapes.
+
 The ``gpu`` tests hold the CUDA kernel to the plain version on the card
-and skip here.
+and skip here: both routes on each side of the boundary, L from 0 to
+1,000, V from 10 rows to more than four windows, D from 4 to 256,
+repeated indices, bags of padding only (exactly 0), index V, identical
+bits from two calls and one launch a call.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -32,6 +42,14 @@ from repro_torch.kernels.embedding_bag import (  # noqa: E402
     embedding_bag,
     embedding_bag_padded,
     embedding_bag_plain,
+)
+from repro_torch.kernels.embedding_bag.embedding_bag import (  # noqa: E402
+    MAX_SLICES,
+    MAX_WINDOWS,
+    SWEEP_SMEM,
+    SWEEP_WARPS,
+    WINDOW_BYTES,
+    plan_route,
 )
 from repro_torch.models.recsys import embedding  # noqa: E402
 from test_torch_harness import run_reference  # noqa: E402
@@ -192,6 +210,95 @@ def test_seeded_table():
                        t[[3, 0]])
 
 
+# ---------------------------- the route choice ------------------------------
+
+H100_SMS = 132
+P99 = (512, 200, 1_000_448, 64)  # bert4rec's serve_p99 bags, its item table
+BULK = (262_144, 200, 1_000_448, 64)  # serve_bulk
+
+
+def _check_plan(plan, b, l, v, d, sms):
+    """Parameters the kernel's C entry takes, and that cover every bag and
+    every row."""
+    assert plan.route in ("A", "B")
+    if plan.route == "A":
+        assert 1 <= plan.slices <= MAX_SLICES
+        assert plan.slices & (plan.slices - 1) == 0
+        assert plan.slices <= max(1, l)
+        assert plan.blocks * plan.bags_per_block >= b
+        assert plan.scratch_bytes == 0
+        return
+    assert plan.blocks == sms
+    assert b >= plan.blocks * SWEEP_WARPS
+    assert plan.passes * plan.blocks * plan.bags_per_block >= b
+    assert (plan.passes - 1) * plan.blocks * plan.bags_per_block < b
+    assert plan.bags_per_block >= SWEEP_WARPS
+    assert 1 <= plan.windows <= MAX_WINDOWS
+    assert plan.window_rows & (plan.window_rows - 1) == 0  # a power of two
+    assert plan.windows * plan.window_rows >= v
+    assert (plan.windows - 1) * plan.window_rows < v
+    # within WINDOW_BYTES, unless MAX_WINDOWS windows would not cover V
+    fewest = 1 << (math.ceil(v / MAX_WINDOWS) - 1).bit_length()
+    assert (plan.window_rows * d * 4 <= WINDOW_BYTES
+            or plan.window_rows == fewest)
+    assert plan.smem_bytes == plan.bags_per_block * d * 4 <= SWEEP_SMEM
+    sort = plan.blocks * plan.bags_per_block * l * 8 if plan.windows > 1 else 0
+    assert plan.scratch_bytes >= 16 + sort
+
+
+def test_route_serve_p99_fills_the_card_with_slices():
+    plan = plan_route(*P99, sms=H100_SMS)
+    _check_plan(plan, *P99, H100_SMS)
+    assert plan.route == "A" and plan.slices == 4
+    assert P99[0] * plan.slices >= 8 * H100_SMS  # 8 warps an SM
+
+
+def test_route_serve_bulk_sweeps_windows_of_the_table():
+    plan = plan_route(*BULK, sms=H100_SMS)
+    _check_plan(plan, *BULK, H100_SMS)
+    assert plan.route == "B"
+    assert (plan.windows, plan.passes) == (8, 3)
+    assert plan.window_rows * 64 * 4 == 32 * 2**20
+
+
+@pytest.mark.parametrize("v", [10, 4096, 130_000])
+def test_route_b_table_in_one_window_needs_no_sort(v):
+    plan = plan_route(262_144, 200, v, 64, sms=H100_SMS)
+    _check_plan(plan, 262_144, 200, v, 64, H100_SMS)
+    assert plan.route == "B" and plan.windows == 1 and plan.window_rows >= v
+    assert plan.scratch_bytes == 16  # the window counter alone
+
+
+@pytest.mark.parametrize("b,l,v,d", [(1, 0, 10, 4), (1, 1, 10, 4),
+                                     (1, 10**6, 10, 4), (3, 10**6, 10**6, 256),
+                                     (5000, 0, 10**6, 64),
+                                     (5000, 10**5, 10**7, 8),
+                                     (10**6, 1, 10**8, 4),
+                                     (10**5, 7, 10**7, 1024),
+                                     (10**5, 7, 10**7, 65_536)])
+def test_route_extreme_shapes_give_valid_parameters(b, l, v, d):
+    plan = plan_route(b, l, v, d, sms=H100_SMS)
+    _check_plan(plan, b, l, v, d, H100_SMS)
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 114, 8])
+def test_route_boundary_is_one_bag_per_warp_of_route_b(sms):
+    b = sms * SWEEP_WARPS
+    below = plan_route(b - 1, 200, 1_000_448, 64, sms=sms)
+    at = plan_route(b, 200, 1_000_448, 64, sms=sms)
+    _check_plan(below, b - 1, 200, 1_000_448, 64, sms)
+    _check_plan(at, b, 200, 1_000_448, 64, sms)
+    assert (below.route, at.route) == ("A", "B")
+
+
+def test_route_b_needs_a_bag_per_warp_in_shared_memory():
+    """A row too wide for 32 bags' sums in a block's shared memory keeps
+    route A, however many bags."""
+    d = (SWEEP_SMEM // SWEEP_WARPS // 16 + 1) * 4
+    assert plan_route(10**6, 10, 1000, d, sms=H100_SMS).route == "A"
+    assert plan_route(10**6, 10, 1000, d - 4, sms=H100_SMS).route == "B"
+
+
 # ------------------------------- on the card --------------------------------
 
 
@@ -229,3 +336,90 @@ def test_kernel_shapes_on_the_card(cuda, b, l, v, d):
     got = embedding_bag(idx, w, table)
     torch.testing.assert_close(got, embedding_bag_plain(idx, w, table),
                                rtol=TOL, atol=TOL)
+
+
+def _draw(cuda, b, l, v, d, seed):
+    """Bags over a table at the served model's scale (normal x 0.02, as
+    ``embedding.table`` draws it): at L = 1,000 over normal(0, 1) rows,
+    any two float32 summation orders differ by about 3e-5, above TOL."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    idx = torch.randint(-1, v + 1, (b, l), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    w = torch.rand((b, l), generator=gen, device=cuda)
+    table = torch.randn((v, d), generator=gen, device=cuda).mul_(0.02)
+    return idx, w, table
+
+
+def _route_of(b, l, v, d):
+    return plan_route(b, l, v, d,
+                      torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def _held(idx, w, table):
+    """The kernel against the plain version, one launch a call, identical
+    bits from a second call; padding-only bags exactly 0."""
+    reset_launch_counts()
+    got = embedding_bag(idx, w, table)
+    again = embedding_bag(idx, w, table)
+    torch.cuda.synchronize()
+    assert launch_counts()["embedding_bag"] == 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, embedding_bag_plain(idx, w, table),
+                               rtol=TOL, atol=TOL)
+    pad = (idx < 0).all(1)
+    assert bool((got[pad] == 0).all())
+    return got
+
+
+# (L, V, D): L = 0, 1, 7 and 1,000; V from 10 rows to more than four
+# windows of route B; D = 4, 8, 12, 64, 128 and 256
+ROUTE_CASES = [(0, 10, 4), (1, 10, 8), (7, 1000, 12), (200, 700_000, 64),
+               (1000, 20_000, 128), (33, 200_000, 256), (20, 10_000_000, 4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l,v,d", ROUTE_CASES)
+@pytest.mark.parametrize("side", ["A", "B"])
+def test_kernel_routes_on_the_card(cuda, side, l, v, d):
+    """Both routes on each side of the boundary (one bag per warp of route
+    B's grid)."""
+    edge = (torch.cuda.get_device_properties(0).multi_processor_count
+            * SWEEP_WARPS)
+    b = edge - 1 if side == "A" else edge
+    plan = _route_of(b, l, v, d)
+    assert plan.route == side
+    if side == "B" and v * d * 4 > 4 * WINDOW_BYTES:
+        assert plan.windows > 4
+    _held(*_draw(cuda, b, l, v, d, seed=l + d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 512, 262_144])
+def test_kernel_serving_shapes_on_the_card(cuda, b):
+    """B = 1 and bert4rec's serve_p99 (route A) and serve_bulk (route B,
+    16 windows, 3 passes) bags over its table's shape."""
+    idx, w, table = _draw(cuda, b, 200, 1_000_448, 64, seed=b)
+    idx = torch.where(torch.rand(idx.shape, device=cuda) < 0.1, -1, idx)
+    idx[0, :] = -1  # a bag of padding only
+    idx[-1, 3] = table.shape[0]  # index V reads row V - 1
+    _held(idx, w, table)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("side", ["A", "B"])
+def test_kernel_repeated_indices_on_the_card(cuda, side):
+    """Bags whose entries repeat a few rows, and bags of one row L times,
+    in a table of several windows (all but one bag in the first)."""
+    edge = (torch.cuda.get_device_properties(0).multi_processor_count
+            * SWEEP_WARPS)
+    b = edge - 1 if side == "A" else edge
+    idx, w, table = _draw(cuda, b, 64, 300_000, 64, seed=7)
+    idx = torch.where(idx >= 0, idx % 5, idx)
+    idx[::3] = 2
+    idx[1, :] = 299_999
+    idx[2, :] = 300_000  # clipped to row V - 1
+    w[1:3] = w[1:3].abs() + 0.01
+    assert _route_of(*idx.shape, *table.shape).route == side
+    got = _held(idx, w, table)
+    torch.testing.assert_close(got[2], got[1] * w[2].sum() / w[1].sum(),
+                               rtol=1e-4, atol=1e-4)

@@ -340,6 +340,20 @@ def test_cli_runs_the_smoke_config_on_the_cpu(capsys):
     assert "prefill: 2x8" in out and "decode:" in out
 
 
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen2-moe-a2.7b"])
+def test_build_defs_defaults_to_the_card(arch):
+    """``build_defs`` and ``LM`` take ``device=None`` as the card: without
+    one they raise, naming ``device="cpu"``, which builds on the CPU."""
+    cfg = get_config(arch, reduced=True)
+    for model in (build_defs(cfg, device="cpu"), T.LM(cfg, device="cpu")):
+        assert {p.device.type for p in model.parameters()} == {"cpu"}
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the gpu test checks the default")
+    for build in (build_defs, T.LM):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build(cfg)
+
+
 # ------------------------------- on the card --------------------------------
 
 
@@ -363,3 +377,11 @@ def test_serve_on_the_card_goes_through_the_kernel(cuda):
     plain, _ = T.prefill(model, tokens,
                          dataclasses.replace(cfg, attention_impl="torch"))
     torch.testing.assert_close(out.last_logits, plain, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen2-moe-a2.7b"])
+def test_build_defs_default_lands_on_the_card(cuda, arch):
+    cfg = get_config(arch, reduced=True)
+    for model in (build_defs(cfg), T.LM(cfg)):
+        assert {p.device.type for p in model.parameters()} == {"cuda"}

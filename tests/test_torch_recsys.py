@@ -46,6 +46,7 @@ from repro_torch.models.convert import (  # noqa: E402
 from repro_torch.models.layers import GeluMLP, layernorm  # noqa: E402
 from repro_torch.models.param import count_params  # noqa: E402
 from repro_torch.models.recsys import embedding  # noqa: E402
+from repro_torch.models.recsys.bert4rec import Bert4Rec  # noqa: E402
 from repro_torch.models.recsys.embedding import embedding_bag  # noqa: E402
 from test_torch_harness import run_reference  # noqa: E402
 
@@ -347,6 +348,20 @@ def test_item_table_bags_through_both_branches():
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+def test_build_defs_defaults_to_the_card():
+    """``build_defs`` and ``Bert4Rec`` take ``device=None`` as the card:
+    without one they raise, naming ``device="cpu"``, which builds on the
+    CPU."""
+    cfg = get_config("bert4rec", reduced=True)
+    for model in (build_defs(cfg, device="cpu"), Bert4Rec(cfg, device="cpu")):
+        assert {p.device.type for p in model.parameters()} == {"cpu"}
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the gpu test checks the default")
+    for build in (build_defs, Bert4Rec):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build(cfg)
+
+
 # ------------------------------- on the card --------------------------------
 
 
@@ -384,3 +399,10 @@ def test_item_table_bags_launch_the_kernel_on_the_card(cuda):
         assert launch_counts()["embedding_bag"] == 1
         want = embedding.embedding_bag(model.items, idx, w, use_kernel=False)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_build_defs_default_lands_on_the_card(cuda):
+    cfg = get_config("bert4rec", reduced=True)
+    for model in (build_defs(cfg), Bert4Rec(cfg)):
+        assert {p.device.type for p in model.parameters()} == {"cuda"}
