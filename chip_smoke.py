@@ -26,6 +26,14 @@ and prints what it measured:
      the bound of each, the sweep's device time (a CUDA graph) and its
      launches' times (``torch.profiler``), the persistent kernel at
      ``max_iter=1`` and its device time;
+  3b. [grid] the distributed engine (``core.dist``) on the 1x1 grid of
+     one NCCL rank: ``solve()`` of the phase-2 instance with backend
+     "auto" (must resolve to "fused", the exchange engine) and "cuda" (the
+     sweep kernel once per round), states and rounds identical to phase
+     2's; the host's partition time and the greedy / MCM / AWAC split;
+     one grid ``solve()`` under ``torch.profiler``; one ``plan()`` and
+     two ``Matcher`` calls; an ``exchange_check`` run;
+     phase 3's batch on the grid, every lane identical to phase 3;
   4. the sweep kernel alone against its plain version on a mid-AWAC state
      of the phase-2 instance, with the median time of each, its device
      time and its launches' times. In phases 3 and 4 the sweep kernel is
@@ -129,6 +137,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 from torch.profiler import ProfilerActivity, profile
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -141,7 +150,10 @@ from repro_torch.core import (  # noqa: E402
     MatchingProblem,
     SolveOptions,
     batch,
+    dist,
     graph,
+    make_grid,
+    plan,
     ref,
     single,
     solve,
@@ -659,6 +671,7 @@ def phase_single(log, kernels):
                                                       backend=b))
         require(int(it) == iters and torch.equal(s.mate_row, r_auto.mate_row),
                 f"single: awac({b}) from the MCM state differs from solve()")
+        final = s
     t_pre = t_auto - t_greedy - t_mcm - t_awac["cuda_persistent"]
     print(f"[single] MCM: {mcm_log['phases']} phases, {mcm_log['layers']} BFS "
           f"layers; BFS {mcm_log['bfs_s']:.3f} s, trace/flip "
@@ -703,7 +716,7 @@ def phase_single(log, kernels):
           f"device: {split_text(split)}; {sectors_text(sectors)}")
     log["single"].update(loop_ms=k2["ms"], loop_one_round_ms=one_ms,
                          loop_device=split, loop_lookup_sectors=sectors)
-    return p, st, args, ws, mg, iters
+    return p, st, args, ws, mg, iters, r_auto, final
 
 
 def phase_batch(log, kernels):
@@ -745,6 +758,7 @@ def phase_batch(log, kernels):
                                                    st, mg, n, ws, iters))
     k2 = kernels["awac_persistent"]
     k2["max_abs_err"] = max(k2["max_abs_err"], err2)
+    return pb, rb
 
 
 def phase_batch_kernels(kernels, row, col, val, rp, st, mg, n, ws, iters):
@@ -828,12 +842,103 @@ def phase_batch_kernels(kernels, row, col, val, rp, st, mg, n, ws, iters):
     return out
 
 
+def phase_grid(log, kernels, single_run, batch_run):
+    """[grid] The distributed engine (``core.dist``) on the 1x1 grid of
+    one NCCL rank, through ``solve()`` and ``plan()``: every collective
+    runs with one peer. Each result must equal phase 2's or phase 3's
+    local one, bit for bit."""
+    p, n = single_run[0], single_run[0].n
+    r_local, s_local = single_run[6], single_run[7]
+    pb, rb = batch_run
+    grid, t_init = wall(lambda: make_grid(1, 1))
+    require(tdist.get_backend() == "nccl", f"grid on {tdist.get_backend()}")
+    print(f"[grid] NCCL group of one rank up in {t_init:.2f} s: {grid}")
+
+    # the main path: solve() on the grid, "auto" (must mean "fused") and
+    # "cuda" (the sweep kernel once per round)
+    backend.reset_launch_counts()
+    r_auto, t_auto = wall(lambda: solve(p, SolveOptions(grid=grid)))
+    k_auto = backend.launch_counts()
+    require((r_auto.execution.backend, r_auto.execution.source)
+            == ("fused", "grid-default"),
+            f"grid auto resolved to {r_auto.execution}")
+    backend.reset_launch_counts()
+    r_cuda, t_cuda = wall(lambda: solve(p, SolveOptions(grid=grid,
+                                                        backend="cuda")))
+    k_cuda = backend.launch_counts()
+    require(k_cuda["awac_sweep"] >= 1 and
+            k_cuda["awac_sweep"] == int(r_cuda.awac_iters),
+            f"grid cuda: sweep launches {k_cuda}, rounds "
+            f"{int(r_cuda.awac_iters)}")
+    require(r_cuda.execution.ran_kernel is True, "grid cuda ran no kernel")
+    kernels["awac_sweep"]["launches"] += k_cuda["awac_sweep"]
+    same_results(r_auto, r_local, "grid auto vs local")
+    same_results(r_cuda, r_local, "grid cuda vs local")
+
+    # the engine's own output: the full state against phase 2's, and the
+    # split of its phases
+    rows = tuple(x.cpu().numpy()[None] for x in (p.row, p.col, p.val))
+    splits = {}
+    for b in ("fused", "cuda"):
+        drv = dist._DistBatchedAWPM(grid, n, backend=b,
+                                    degrade_infeasible=True)
+        (st, it, dropped), t = wall(lambda: drv.run(*rows))
+        require(int(dropped) == 0, f"grid {b}: {int(dropped)} dropped")
+        require(int(it[0]) == int(r_local.awac_iters),
+                f"grid {b}: {int(it[0])} rounds")
+        for name, a, want in zip(("mate_row", "mate_col", "u", "v"), st,
+                                 s_local):
+            require(torch.equal(a[0], want), f"grid {b}: {name} differs")
+        splits[b] = dict(drv.split, run_s=t)
+    sp = splits["fused"]
+    print(f"[grid] n={n}: solve() on the grid auto (fused) {t_auto:.2f} s, "
+          f"cuda {t_cuda:.2f} s; the local solve() auto "
+          f"{log['single']['solve_s']['auto']:.2f} s, cuda "
+          f"{log['single']['solve_s']['cuda']:.2f} s; states and rounds "
+          f"identical; sweep launches {k_cuda['awac_sweep']}")
+    print(f"[grid] partition on the host {sp['partition_s']:.3f} s; split "
+          f"(the engine alone, {sp['run_s']:.3f} s): greedy "
+          f"{sp['greedy_s']:.3f} s, MCM {sp['mcm_s']:.3f} s, AWAC fused "
+          f"{sp['awac_s']:.3f} s / cuda {splits['cuda']['awac_s']:.3f} s; "
+          f"local: greedy {log['single']['greedy_s']:.3f} s, MCM "
+          f"{log['single']['mcm_s']:.3f} s")
+
+    prof = profiled(lambda: solve(p, SolveOptions(grid=grid)),
+                    "solve() on the grid", watch=("scatter", "nccl"))
+
+    # plan() once, two calls; the audited exchange
+    matcher, t_plan = wall(lambda: plan(p, SolveOptions(grid=grid)))
+    r1, t1 = wall(lambda: matcher(p))
+    r2, t2 = wall(lambda: matcher(p))
+    same_results(r1, r_local, "grid Matcher vs local")
+    same_results(r2, r1, "grid Matcher, second call")
+    r_chk, t_chk = wall(lambda: solve(p, SolveOptions(grid=grid,
+                                                      exchange_check=True)))
+    same_results(r_chk, r_local, "grid exchange_check vs local")
+    print(f"[grid] plan() {t_plan:.3f} s, then two calls {t1:.2f} s / "
+          f"{t2:.2f} s (block_cap {matcher.block_cap}); exchange_check "
+          f"{t_chk:.2f} s; all identical")
+
+    # phase 3's batch on the grid
+    rg, t_b = wall(lambda: solve(pb, SolveOptions(grid=grid)))
+    same_results(rg, rb, "grid batch vs local batch")
+    print(f"[grid] B={pb.batch_size} n={pb.n}: solve() on the grid "
+          f"{t_b:.2f} s (local {log['batch']['solve_s']['auto']:.2f} s); "
+          f"every lane identical")
+    log["grid"] = dict(init_s=t_init, solve_s=dict(auto=t_auto, cuda=t_cuda),
+                       launches=dict(auto=k_auto, cuda=k_cuda),
+                       split=splits, profile=prof, plan_s=t_plan,
+                       matcher_s=[t1, t2],
+                       check_s=t_chk, batch_s=t_b)
+    tdist.destroy_process_group()
+
+
 def phase_sweep(log, kernels, single_run):
     """The sweep kernel on a state from the middle of the phase-2 AWAC run
     (the MCM state itself when the run has fewer than three rounds: its
     last round finds nothing, so only the rounds before it sweep real
     candidates)."""
-    p, st, args, ws, mg, iters = single_run
+    p, st, args, ws, mg, iters = single_run[:6]
     n = p.n
     rounds = (iters - 1) // 2
     margs = args
@@ -1851,7 +1956,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_build(log)
     single_run = phase_single(log, kernels)
-    phase_batch(log, kernels)
+    batch_run = phase_batch(log, kernels)
+    phase_grid(log, kernels, single_run, batch_run)
+    del batch_run
     phase_sweep(log, kernels, single_run)
     phase_profile(log, single_run[0])
     phase_quality(log)

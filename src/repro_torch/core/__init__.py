@@ -2,20 +2,34 @@
 greedy maximal -> MCM -> AWAC 4-cycles) on torch tensors.
 
 Public surface: build a :class:`MatchingProblem`, tune
-:class:`SolveOptions`, call :func:`solve`.
+:class:`SolveOptions` (``grid=make_grid(pr, pc)`` for the 2D process
+grid), call :func:`solve`, or :func:`plan` for a plan-once/run-many
+:class:`Matcher`.
 """
-from repro_torch.core import api, batch, convert, graph, preflight, ref, single
+from repro_torch.core import (
+    api,
+    batch,
+    convert,
+    dist,
+    graph,
+    preflight,
+    ref,
+    single,
+)
 from repro_torch.core.api import (
     BACKENDS,
     ON_INVALID,
     ExecutionInfo,
+    Matcher,
     MatchingProblem,
     MatchResult,
     ProblemSpec,
     SolveOptions,
+    plan,
     solve,
 )
 from repro_torch.core.constants import MIN_GAIN
+from repro_torch.core.dist import ExchangeIntegrityError, GridSpec, make_grid
 from repro_torch.core.graph import BipartiteGraph, from_coo, generate, matrix_suite
 from repro_torch.core.preflight import (
     InfeasibleProblemError,
@@ -28,6 +42,7 @@ __all__ = [
     "api",
     "batch",
     "convert",
+    "dist",
     "graph",
     "preflight",
     "ref",
@@ -36,10 +51,13 @@ __all__ = [
     "MIN_GAIN",
     "ON_INVALID",
     "BipartiteGraph",
+    "ExchangeIntegrityError",
     "ExecutionInfo",
+    "GridSpec",
     "InfeasibleProblemError",
     "MatchResult",
     "MatchState",
+    "Matcher",
     "MatchingProblem",
     "PreflightError",
     "PreflightReport",
@@ -47,6 +65,8 @@ __all__ = [
     "SolveOptions",
     "from_coo",
     "generate",
+    "make_grid",
     "matrix_suite",
+    "plan",
     "solve",
 ]

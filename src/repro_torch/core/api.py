@@ -1,15 +1,20 @@
-"""The public facade: one problem / options / result API over the single
-and batched engines.
+"""The public facade: one problem / options / result API over the single,
+batched and distributed engines.
 
   - :class:`MatchingProblem` — the padded lex-sorted COO edge list as
     tensors ([cap] for one instance, [B, cap] for a batch) plus ``n``;
     constructors ``from_coo`` / ``from_graph`` / ``stack``.
   - :class:`SolveOptions` — a frozen, eagerly validated dataclass of the
     knobs (``max_iter``, ``min_gain``, ``backend``, ``window_steps``,
-    ``on_invalid``).
+    ``grid``, ``cap``, ``a2a_caps``, ``packed``, ``on_invalid``,
+    ``exchange_check``).
   - :func:`solve` — runs greedy maximal -> MCM -> AWAC on the problem's
-    device, single or batched by the problem's shape, and returns a
+    device, single or batched by the problem's shape, or on the 2D process
+    grid of ``options.grid`` (``core.dist``), and returns a
     :class:`MatchResult`.
+  - :func:`plan` -> :class:`Matcher` — the plan-once/run-many handle: the
+    grid's per-block capacity, its bucket capacities, the pinned search
+    depth and the engine are set up once, at plan time.
 
 Problems live on the card unless the caller asks for the CPU
 (``device="cpu"``); ``device=None`` means ``cuda``, and without a card it
@@ -26,18 +31,25 @@ import numpy as np
 import torch
 
 from repro_torch.core import batch as _batch
+from repro_torch.core import dist as _dist
 from repro_torch.core import graph as _graph
 from repro_torch.core import preflight as _preflight
 from repro_torch.core import single as _single
 from repro_torch.core.constants import MIN_GAIN
-from repro_torch.core.single import resolve_device
+from repro_torch.core.single import MatchState, resolve_device
 from repro_torch.kernels.backend import launch_counts
+from repro_torch.sparse.csr import max_row_nnz, window_depth
+from repro_torch.sparse.partition import plan_block_cap
 
 #: every backend ``SolveOptions`` accepts. "auto" runs the persistent CUDA
-#: kernel for a problem on the card and the plain torch sweep on the CPU.
+#: kernel for a problem on the card and the plain torch sweep on the CPU;
+#: on a grid it means "fused", the distributed exchange engine (grid only).
 #: "cuda" launches the sweep kernel once per round. The two kernel
-#: backends run their kernels' plain versions on a CPU problem.
-BACKENDS = ("auto", "reference", "torch", "cuda", "cuda_persistent")
+#: backends run their kernels' plain versions on a CPU problem;
+#: "cuda_persistent" is local only, and "torch"/"cuda" with a grid need
+#: the 1x1 grid (the block is the whole instance).
+BACKENDS = ("auto", "reference", "torch", "cuda", "cuda_persistent",
+            "fused")
 
 #: backends that launch a hand-written kernel for a problem on the card
 KERNEL_BACKENDS = ("cuda", "cuda_persistent")
@@ -51,9 +63,11 @@ __all__ = [
     "ON_INVALID",
     "ExecutionInfo",
     "MatchResult",
+    "Matcher",
     "MatchingProblem",
     "ProblemSpec",
     "SolveOptions",
+    "plan",
     "resolve_device",
     "solve",
 ]
@@ -204,8 +218,15 @@ class SolveOptions:
     window_steps  windowed-search depth override (None = measured; extra
                   depth never changes results, and an undersized override
                   is clamped up to the measured need).
-    grid          the 2D process grid of the distributed engine. Not
-                  ported yet: anything but None raises NotImplementedError.
+    grid          None (local) or a ``core.dist.GridSpec`` (``make_grid``):
+                  presence selects the distributed engine.
+    cap           distributed per-block edge capacity override (None = the
+                  true block occupancy, ``sparse.partition.plan_block_cap``;
+                  too small raises "refusing to truncate" at partition
+                  time: edges are never dropped silently).
+    a2a_caps      distributed bucket capacities of the two exchange stages
+                  (None = the drop-free ``dist.safe_a2a_caps``).
+    packed        pack each distributed exchange into one collective.
     on_invalid    policy for degenerate input (``core.preflight``):
                   "raise" rejects fatal issues (non-finite weights,
                   duplicate edges) and infeasible instances with a typed
@@ -213,6 +234,9 @@ class SolveOptions:
                   infeasibility; "degrade" additionally returns the maximal
                   imperfect matching (``perfect=False``) with the diagnosis
                   attached. All three skip AWAC on infeasible instances.
+    exchange_check  distributed only: count and checksum the two-stage
+                  exchange every AWAC round; a drop, duplicate or
+                  corruption raises ``core.dist.ExchangeIntegrityError``.
     """
 
     max_iter: int = 1000
@@ -220,13 +244,13 @@ class SolveOptions:
     backend: str = "auto"
     window_steps: int | None = None
     grid: Any = None
+    cap: int | None = None
+    a2a_caps: tuple[int, int] | None = None
+    packed: bool = False
     on_invalid: str = "raise"
+    exchange_check: bool = False
 
     def __post_init__(self):
-        if self.grid is not None:
-            raise NotImplementedError(
-                "SolveOptions.grid: the 2D-grid distributed engine is not "
-                "ported to torch yet (ROADMAP.md, Queue 1, item 6)")
         if self.backend not in BACKENDS:
             raise ValueError(
                 f"unknown backend {self.backend!r}: expected one of "
@@ -249,6 +273,58 @@ class SolveOptions:
                 self, "window_steps",
                 _as_int("window_steps must be None or a positive int",
                         self.window_steps))
+        if self.cap is not None:
+            object.__setattr__(
+                self, "cap",
+                _as_int("cap must be None or a positive per-block edge "
+                        "capacity", self.cap))
+        if self.a2a_caps is not None:
+            caps = tuple(self.a2a_caps)
+            if len(caps) != 2:
+                raise ValueError(
+                    f"a2a_caps must be two positive ints (stage-1, stage-2 "
+                    f"bucket capacities), got {self.a2a_caps!r}")
+            object.__setattr__(self, "a2a_caps", tuple(
+                _as_int("a2a_caps must be two positive ints", c)
+                for c in caps))
+        if self.grid is not None:
+            spec = self.grid
+            if not isinstance(spec, _dist.GridSpec):
+                raise ValueError(
+                    f"grid must be a repro_torch.core.dist.GridSpec (see "
+                    f"make_grid), got {type(spec).__name__}")
+            if self.backend == "cuda_persistent":
+                raise ValueError(
+                    "backend 'cuda_persistent' runs the whole AWAC loop "
+                    "inside one local kernel and cannot take part in the "
+                    "distributed exchange: drop SolveOptions.grid")
+            if self.backend in ("torch", "cuda") and \
+                    (spec.pr, spec.pc) != (1, 1):
+                raise ValueError(
+                    f"backend {self.backend!r} routes through the local "
+                    f"sweep and needs the 1x1 grid, got "
+                    f"{spec.pr}x{spec.pc}")
+        else:
+            if self.backend == "fused":
+                raise ValueError(
+                    "backend 'fused' is the distributed exchange engine and "
+                    "requires SolveOptions.grid")
+            for name in ("cap", "a2a_caps"):
+                if getattr(self, name) is not None:
+                    raise ValueError(
+                        f"{name} is a distributed capacity knob and "
+                        f"requires SolveOptions.grid")
+            if self.packed:
+                raise ValueError(
+                    "packed is a distributed exchange knob and requires "
+                    "SolveOptions.grid")
+            if self.exchange_check:
+                raise ValueError(
+                    "exchange_check audits the distributed two-stage "
+                    "exchange and requires SolveOptions.grid")
+
+    def _dist_backend(self) -> str:
+        return "fused" if self.backend == "auto" else self.backend
 
 
 # --------------------------------------------------------------------------
@@ -261,8 +337,9 @@ class ExecutionInfo:
     """How a solve actually executed.
 
     ``backend``: the concrete engine that ran (never "auto").
-    ``source``: "explicit" (user-pinned) or "default" ("auto" resolved by
-    the problem's device; the port has no measured dispatch table yet).
+    ``source``: "explicit" (user-pinned), "default" ("auto" resolved by
+    the problem's device; the port has no measured dispatch table yet) or
+    "grid-default" ("auto" on a grid: the fused exchange engine).
     ``device``: the device the problem was solved on.
     ``ran_kernel``: for the kernel backends, True when a hand-written CUDA
     kernel was launched and False when its plain torch version ran (a CPU
@@ -364,27 +441,44 @@ def _finish(problem: MatchingProblem, result: MatchResult,
     return dataclasses.replace(result, diagnosis=report)
 
 
-def solve(problem: MatchingProblem, options: SolveOptions | None = None, *,
-          warm_start=None) -> MatchResult:
-    """Run the full AWPM pipeline (greedy maximal -> MCM -> AWAC) on
-    ``problem``, on the problem's device: the single-instance engine for a
-    [cap] problem, the batched engine for a [B, cap] one. Returns a
-    :class:`MatchResult`; bit-identical per instance on every route and
-    backend.
+def _execution(problem: MatchingProblem, backend: str, source: str,
+               launches_before: int) -> ExecutionInfo:
+    ran = None
+    if backend in KERNEL_BACKENDS:
+        ran = sum(launch_counts().values()) > launches_before
+    return ExecutionInfo(backend=backend, source=source,
+                         device=str(problem.device), ran_kernel=ran)
 
-    ``warm_start`` (seeding from an earlier matching) is not ported yet
-    and raises NotImplementedError."""
-    options = SolveOptions() if options is None else options
-    _check_types(problem, options)
+
+def _refuse_warm_start(warm_start):
     if warm_start is not None:
         raise NotImplementedError(
             "solve(warm_start=...): warm-start rematching is not ported to "
             "torch yet; it comes with the serving tier (ROADMAP.md, Queue 1, "
             "item 9)")
+
+
+def solve(problem: MatchingProblem, options: SolveOptions | None = None, *,
+          warm_start=None) -> MatchResult:
+    """Run the full AWPM pipeline (greedy maximal -> MCM -> AWAC) on
+    ``problem``: the single-instance engine for a [cap] problem, the
+    batched engine for a [B, cap] one, on the problem's device; with
+    ``options.grid``, the distributed engine on that process grid (a
+    single instance lifted to B = 1), which every rank calls with the same
+    problem. Returns a :class:`MatchResult`; bit-identical per instance on
+    every route and backend.
+
+    ``warm_start`` (seeding from an earlier matching) is not ported yet
+    and raises NotImplementedError."""
+    options = SolveOptions() if options is None else options
+    _check_types(problem, options)
+    _refuse_warm_start(warm_start)
     problem, report = _apply_preflight(problem, options)
-    backend = _single.resolve_backend(options.backend, problem.device)
-    kernel = backend in KERNEL_BACKENDS
+    if options.grid is not None:
+        result = _solve_dist(problem, options)
+        return _finish(problem, result, options, report)
     before = sum(launch_counts().values())
+    backend = _single.resolve_backend(options.backend, problem.device)
     engine = _batch._awpm_batched if problem.is_batched else _single._awpm
     state, iters = engine(
         problem.row, problem.col, problem.val, problem.n,
@@ -392,11 +486,207 @@ def solve(problem: MatchingProblem, options: SolveOptions | None = None, *,
         backend=backend, window_steps=options.window_steps,
         degrade_infeasible=True)
     result = _result(state, iters, problem.n, batched=problem.is_batched)
-    execution = ExecutionInfo(
-        backend=backend,
-        source="explicit" if options.backend != "auto" else "default",
-        device=str(problem.device),
-        ran_kernel=(sum(launch_counts().values()) > before) if kernel
-        else None)
-    result = dataclasses.replace(result, execution=execution)
+    source = "explicit" if options.backend != "auto" else "default"
+    result = dataclasses.replace(
+        result, execution=_execution(problem, backend, source, before))
     return _finish(problem, result, options, report)
+
+
+def _solve_dist(problem: MatchingProblem, options: SolveOptions,
+                driver=None) -> MatchResult:
+    """Grid dispatch: the distributed-batched engine on ``options.grid``,
+    a single instance lifted to B = 1. Every rank partitions the same
+    problem on the host and runs its own block; the result is replicated
+    on every rank."""
+    grid = options.grid
+    if problem.device != grid.device:
+        raise ValueError(
+            f"the problem lies on {problem.device} but the grid runs on "
+            f"{grid.device}")
+    before = sum(launch_counts().values())
+    row, col, val = (x.cpu().numpy() for x in
+                     (problem.row, problem.col, problem.val))
+    batched = problem.is_batched
+    if not batched:
+        row, col, val = row[None], col[None], val[None]
+    if driver is None:
+        driver = _dist._DistBatchedAWPM(
+            grid, problem.n, cap=options.cap, a2a_caps=options.a2a_caps,
+            max_iter=options.max_iter, min_gain=options.min_gain,
+            packed=options.packed, backend=options._dist_backend(),
+            window_steps=options.window_steps, degrade_infeasible=True,
+            exchange_check=options.exchange_check)
+    state, iters, aux = driver.run(row, col, val)
+    # with exchange_check the engine sums a [dropped, integrity] pair;
+    # otherwise aux is the plain global dropped counter
+    aux = aux.reshape(-1).tolist()
+    dropped = aux[0]
+    integrity = aux[1] if len(aux) > 1 else 0
+    if integrity != 0:
+        raise _dist.ExchangeIntegrityError(
+            f"exchange integrity check failed on {integrity} AWAC round(s): "
+            f"payloads received across the two-stage all_to_all do not "
+            f"match what was sent (count or checksum mismatch). The "
+            f"exchange lost, duplicated, or corrupted data; the result "
+            f"cannot be trusted.")
+    # only user-given a2a_caps can drop (the safe_a2a_caps default is
+    # drop-free); a drop breaks the bit-identity contract, so it is an
+    # error here, never a silent degradation
+    if dropped != 0:
+        raise _dist.ExchangeIntegrityError(
+            f"{dropped} exchange requests were dropped by the "
+            f"user-supplied a2a_caps={options.a2a_caps}: the result would "
+            f"not be bit-identical to the local engines. Raise the bucket "
+            f"capacities or leave a2a_caps=None for the drop-free default.")
+    if not batched:
+        state = MatchState(*(x[0] for x in state))
+        iters = iters[0]
+    result = _result(state, iters, problem.n, batched)
+    source = "explicit" if options.backend != "auto" else "grid-default"
+    return dataclasses.replace(result, execution=_execution(
+        problem, options._dist_backend(), source, before))
+
+
+# --------------------------------------------------------------------------
+# plan: the plan-once/run-many Matcher
+# --------------------------------------------------------------------------
+
+
+class Matcher:
+    """Solve handle specialized to one :class:`ProblemSpec` and options.
+
+    All per-spec planning happens once, here: on a grid, the per-block
+    capacity (the true occupancy via ``plan_block_cap`` when a prototype
+    problem is given, the provable worst-case bound otherwise), drop-free
+    bucket capacities, the pinned windowed-search depth and the engine's
+    construction; locally, the pinned search depth, which spares each call
+    its device read. Construct via :func:`plan`.
+    """
+
+    def __init__(self, problem_spec: ProblemSpec, options: SolveOptions,
+                 prototype: MatchingProblem | None = None):
+        self.problem_spec = problem_spec
+        self.options = options
+        grid = options.grid
+        self._driver = None
+        if grid is None:
+            # pinned local search depth: covers any row (<= min(cap, n)
+            # entries), and extra depth never changes a search result
+            bound = window_depth(min(problem_spec.cap, problem_spec.n))
+            self._window_steps = max(options.window_steps or 0, bound)
+            self.block_cap = None
+            self.a2a_caps = None
+            return
+
+        n, pr, pc = problem_spec.n, grid.pr, grid.pc
+        if options.cap is not None:
+            self.block_cap = options.cap
+        elif prototype is not None:
+            self.block_cap = plan_block_cap(
+                prototype.row.cpu().numpy(), prototype.col.cpu().numpy(),
+                n, pr, pc)
+        else:
+            # worst-case occupancy: a block never holds more than its dense
+            # extent nor more than the instance's whole edge list
+            br, bc = -(-n // pr), -(-n // pc)
+            self.block_cap = max(8, min(problem_spec.cap, br * bc))
+        self.a2a_caps = options.a2a_caps or _dist.safe_a2a_caps(
+            self.block_cap, pr, pc)
+        # the pin is lifted to the prototype's widest row (a block's row
+        # holds no more), or else to the block bound: a problem like the
+        # prototype keeps the pin and uses the plan-time engine. A wider
+        # row lifts the depth and builds another engine, with the same
+        # results; every search round costs a pass over the block.
+        need = self.block_cap if prototype is None else max_row_nnz(
+            prototype.row, n)
+        self._window_steps = max(options.window_steps or 0,
+                                 window_depth(need))
+        self._driver = _dist._DistBatchedAWPM(
+            grid, n, cap=self.block_cap, a2a_caps=self.a2a_caps,
+            max_iter=options.max_iter, min_gain=options.min_gain,
+            packed=options.packed, backend=options._dist_backend(),
+            window_steps=self._window_steps,
+            degrade_infeasible=True, exchange_check=options.exchange_check)
+        # build the engine now; the call mirrors _DistBatchedAWPM.run, so
+        # the first call finds it in the engine cache
+        _dist._make_awpm_dist_batched(
+            grid, n, problem_spec.batch or 1, self.block_cap, self.a2a_caps,
+            options.max_iter, options.min_gain, packed=options.packed,
+            backend=options._dist_backend(), window_steps=self._window_steps,
+            from_state=False, degrade_infeasible=True,
+            exchange_check=options.exchange_check)
+
+    def _check(self, problem: MatchingProblem):
+        spec = self.problem_spec
+        if not isinstance(problem, MatchingProblem):
+            raise TypeError(
+                f"Matcher takes a MatchingProblem, got "
+                f"{type(problem).__name__}")
+        if problem.n != spec.n or problem.batch_size != spec.batch:
+            raise ValueError(
+                f"problem (n={problem.n}, batch={problem.batch_size}) does "
+                f"not match the planned spec (n={spec.n}, "
+                f"batch={spec.batch})")
+        if problem.cap != spec.cap:
+            raise ValueError(
+                f"problem cap {problem.cap} != planned cap {spec.cap} "
+                f"(the plan is shape-specialized; re-plan() or pad to the "
+                f"planned capacity)")
+
+    def __call__(self, problem: MatchingProblem,
+                 warm_start=None) -> MatchResult:
+        self._check(problem)
+        opts = self.options
+        if self._driver is None:
+            pinned = dataclasses.replace(opts,
+                                         window_steps=self._window_steps)
+            return solve(problem, pinned, warm_start=warm_start)
+        _refuse_warm_start(warm_start)
+        problem, report = _apply_preflight(problem, opts)
+        try:
+            result = _solve_dist(problem, opts, driver=self._driver)
+        except ValueError as e:
+            if "refusing to truncate" not in str(e):
+                raise
+            # a prototype-planned capacity is the prototype's TRUE
+            # occupancy (no headroom): denser same-spec data needs a bigger
+            # plan, not the partition's own advice
+            raise ValueError(
+                f"problem exceeds the planned per-block capacity "
+                f"(block_cap={self.block_cap}): {e}. plan() again with "
+                f"a denser prototype, or pass SolveOptions(cap=...) "
+                f"with headroom for the serving workload.") from e
+        return _finish(problem, result, opts, report)
+
+    def __repr__(self):
+        mode = "local" if self._driver is None else (
+            f"grid {self.options.grid.pr}x{self.options.grid.pc}, "
+            f"block_cap={self.block_cap}, a2a_caps={self.a2a_caps}")
+        return (f"Matcher(n={self.problem_spec.n}, "
+                f"cap={self.problem_spec.cap}, "
+                f"batch={self.problem_spec.batch}, "
+                f"backend={self.options.backend!r}, {mode}, "
+                f"window_steps={self._window_steps})")
+
+
+def plan(problem_spec: ProblemSpec | MatchingProblem,
+         options: SolveOptions | None = None) -> Matcher:
+    """Build a :class:`Matcher` for ``problem_spec`` (a :class:`ProblemSpec`,
+    or a prototype :class:`MatchingProblem`, which lets the grid's
+    capacity planning measure the TRUE block occupancy instead of the
+    worst-case bound). Plan time: capacity and bucket planning, the search
+    depth's pin, the engine's construction. Call time: preflight, the
+    partition and the engine's run."""
+    options = SolveOptions() if options is None else options
+    if not isinstance(options, SolveOptions):
+        raise TypeError(
+            f"options must be SolveOptions, got {type(options).__name__}")
+    prototype = None
+    if isinstance(problem_spec, MatchingProblem):
+        prototype = problem_spec
+        problem_spec = problem_spec.spec
+    elif not isinstance(problem_spec, ProblemSpec):
+        raise TypeError(
+            f"plan() takes a ProblemSpec or a prototype MatchingProblem, "
+            f"got {type(problem_spec).__name__}")
+    return Matcher(problem_spec, options, prototype=prototype)

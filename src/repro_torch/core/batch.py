@@ -148,18 +148,30 @@ def greedy_commit(pv, prow, n: int, mate_row, mate_col, active):
     return mate_row, mate_col, active & ok.any(dim=1)
 
 
-def greedy_maximal_batched(row, col, val, n: int):
-    """``single.greedy_maximal``'s proposal rounds for all instances at
-    once; instances whose round proposes nothing go inactive (their mates
-    freeze). Returns (mate_row, mate_col), each [B, n + 1]."""
-    b = row.shape[0]
-    mate_row, mate_col = empty_mates(b, n, row.device)
-    active = torch.ones(b, dtype=torch.bool, device=row.device)
+def greedy_loop(n: int, b: int, propose_fn, device):
+    """Greedy proposal rounds for B instances with per-instance convergence
+    masks. ``propose_fn(mate_row, mate_col) -> (pv, prow)`` supplies each
+    round's per-column proposals: the full edge list here, 2D blocks and
+    collectives in ``core.dist``. Instances whose round proposes nothing go
+    inactive (their mates freeze). Returns (mate_row, mate_col), each
+    [B, n + 1]."""
+    mate_row, mate_col = empty_mates(b, n, device)
+    active = torch.ones(b, dtype=torch.bool, device=device)
     while bool(active.any()):
-        pv, prow = greedy_propose_full(row, col, val, n, mate_row, mate_col)
+        pv, prow = propose_fn(mate_row, mate_col)
         mate_row, mate_col, active = greedy_commit(pv, prow, n, mate_row,
                                                    mate_col, active)
     return mate_row, mate_col
+
+
+def greedy_maximal_batched(row, col, val, n: int):
+    """``single.greedy_maximal``'s proposal rounds for all instances at
+    once (``greedy_loop`` over the full edge list). Returns (mate_row,
+    mate_col), each [B, n + 1]."""
+    return greedy_loop(
+        n, row.shape[0],
+        lambda mr, mc: greedy_propose_full(row, col, val, n, mr, mc),
+        row.device)
 
 
 # --------------------------------------------------------------------------
@@ -199,13 +211,15 @@ def bfs_commit(new, pcol, n: int, mate_col, parent_col, visited):
     return parent_col, visited, frontier, found
 
 
-def _mcm_bfs_batched(row, col, val, n: int, mate_row, mate_col):
-    """``single._mcm_bfs`` for all instances at once: per-instance layer
-    counts, found flags and progress masks. An instance whose own BFS
-    terminated (found / stalled / layer bound) freezes while deeper
-    searches continue. Returns (parent_col, visited, found, layers)."""
-    b = row.shape[0]
-    dev = row.device
+def mcm_bfs_loop(n: int, b: int, mate_row, mate_col, parents_fn):
+    """Layered BFS for all instances at once: per-instance layer counts,
+    found flags and progress masks. ``parents_fn(frontier, visited) ->
+    (new, pcol)`` supplies each layer's per-row parent winners (the full
+    edge list here; 2D blocks and collectives in ``core.dist``). An
+    instance whose own BFS terminated (found / stalled / layer bound)
+    freezes while deeper searches continue. Returns (parent_col, visited,
+    found, layers)."""
+    dev = mate_row.device
     frontier = torch.zeros(b, n + 1, dtype=torch.bool, device=dev)
     frontier[:, :n] = mate_row[:, :n] == n
     parent_col = torch.full((b, n + 1), n, dtype=I32, device=dev)
@@ -219,7 +233,7 @@ def _mcm_bfs_batched(row, col, val, n: int, mate_row, mate_col):
 
     act = act_of()
     while bool(act.any()):
-        new, pcol = bfs_parents_full(row, col, val, n, frontier, visited)
+        new, pcol = parents_fn(frontier, visited)
         parent_col2, visited2, frontier2, found2 = bfs_commit(
             new, pcol, n, mate_col, parent_col, visited)
         keep = act[:, None]
@@ -231,6 +245,14 @@ def _mcm_bfs_batched(row, col, val, n: int, mate_row, mate_col):
         progressed = torch.where(act, new.any(dim=1), progressed)
         act = act_of()
     return parent_col, visited, found, layers
+
+
+def _mcm_bfs_batched(row, col, val, n: int, mate_row, mate_col):
+    """``single._mcm_bfs`` for all instances at once (``mcm_bfs_loop``
+    over the full edge list)."""
+    return mcm_bfs_loop(
+        n, row.shape[0], mate_row, mate_col,
+        lambda fr, vis: bfs_parents_full(row, col, val, n, fr, vis))
 
 
 def trace_and_flip_batched(parent_col, visited, found, layers, mate_row,
@@ -278,13 +300,15 @@ def trace_and_flip_batched(parent_col, visited, found, layers, mate_row,
     return mate_row, mate_col
 
 
-def mcm_batched(row, col, val, n: int, mate_row, mate_col):
-    """Batched MCM: a masked phase loop over the batched BFS + trace/flip
-    bodies. Returns (mate_row, mate_col)."""
+def mcm_loop(n: int, b: int, mate_row, mate_col, parents_fn):
+    """Masked MCM phase loop over the batched BFS + trace/flip bodies,
+    parameterized by the per-layer parent selection (``parents_fn``, see
+    ``mcm_bfs_loop``), so the distributed engine shares every mask and
+    commit. Returns (mate_row, mate_col)."""
     active = (mate_row[:, :n] == n).any(dim=1)
     while bool(active.any()):
-        parent_col, visited, found, layers = _mcm_bfs_batched(
-            row, col, val, n, mate_row, mate_col)
+        parent_col, visited, found, layers = mcm_bfs_loop(
+            n, b, mate_row, mate_col, parents_fn)
         # frozen instances trace nothing: zero their layer counts + found
         found = found & active
         layers = torch.where(active, layers, 0)
@@ -295,6 +319,14 @@ def mcm_batched(row, col, val, n: int, mate_row, mate_col):
         mate_col = torch.where(keep, mc2, mate_col)
         active = active & found & (mate_row[:, :n] == n).any(dim=1)
     return mate_row, mate_col
+
+
+def mcm_batched(row, col, val, n: int, mate_row, mate_col):
+    """Batched MCM: ``mcm_loop`` over the full edge list. Returns
+    (mate_row, mate_col)."""
+    return mcm_loop(
+        n, row.shape[0], mate_row, mate_col,
+        lambda fr, vis: bfs_parents_full(row, col, val, n, fr, vis))
 
 
 # --------------------------------------------------------------------------
@@ -353,20 +385,24 @@ def _cwinners_batched(backend, row, col, val, row_ptr, n, state, min_gain,
 
 
 def awac_loop(n: int, state: MatchState, max_iter: int, cwinners_fn,
-              active0=None):
+              active0=None, aux0=0):
     """Masked batched AWAC loop. ``cwinners_fn(state) -> (Cgain, Ci, Cw1,
-    Cw2)`` supplies each round's Step A+B+C winners; Step D + augmentation
-    is ``single.select_and_augment``. ``active0`` ([B] bool) masks
-    instances out from round 0 (the infeasible-instance short-circuit).
-    Returns (state, iters [B])."""
+    Cw2, aux)`` supplies each round's Step A+B+C winners and a value
+    summed over the rounds (0 for the local backends; the distributed
+    engine's dropped-candidate count, or its [dropped, integrity] pair
+    under the exchange check). Step D + augmentation is
+    ``single.select_and_augment``. ``active0`` ([B] bool) masks instances
+    out from round 0 (the infeasible-instance short-circuit); ``aux0`` is
+    the sum's start. Returns (state, iters [B], aux)."""
     b = state.mate_row.shape[0]
     dev = state.mate_row.device
     active = torch.full((b,), max_iter > 0, dtype=torch.bool, device=dev)
     if active0 is not None:
         active = active & active0
     iters = torch.zeros(b, dtype=I32, device=dev)
+    aux = aux0
     while bool(active.any()):
-        Cgain, Ci, Cw1, Cw2 = cwinners_fn(state)
+        Cgain, Ci, Cw1, Cw2, a = cwinners_fn(state)
         new_state, n_surv = single.select_and_augment(n, Cgain, Ci, Cw1, Cw2,
                                                       state)
         keep = active[:, None]
@@ -374,7 +410,15 @@ def awac_loop(n: int, state: MatchState, max_iter: int, cwinners_fn,
                              for ns, s in zip(new_state, state)))
         iters = iters + active.to(I32)
         active = active & (n_surv > 0) & (iters < max_iter)
-    return state, iters
+        aux = aux + a
+    return state, iters, aux
+
+
+def _resolve_window_steps_batched(row, n: int, window_steps) -> int:
+    """``single._resolve_window_steps`` over [B, cap] rows: one depth for
+    the whole batch (each instance's rows counted on their own; extra
+    depth never changes a search result)."""
+    return single._resolve_window_steps(row, n, window_steps)
 
 
 def awac_batched(row, col, val, n: int, state: MatchState,
@@ -387,7 +431,7 @@ def awac_batched(row, col, val, n: int, state: MatchState,
     Same backend contract as ``single.awac``; every instance's result and
     iteration count are bit-identical to its own single-instance run."""
     backend = single.resolve_backend(backend, row.device)
-    window_steps = single._resolve_window_steps(row, n, window_steps)
+    window_steps = _resolve_window_steps_batched(row, n, window_steps)
     if row_ptr is None:
         row_ptr = batched_row_ptr_from_sorted(row, n)
     min_gain = single._min_gain_tensor(min_gain, row.device)
@@ -405,10 +449,12 @@ def awac_batched(row, col, val, n: int, state: MatchState,
     scratch = SweepScratch()  # the sweep kernel's, kept across rounds
 
     def cwinners(st):
-        return _cwinners_batched(backend, row, col, val, row_ptr, n, st,
-                                 min_gain, window_steps, scratch)
+        return (*_cwinners_batched(backend, row, col, val, row_ptr, n, st,
+                                   min_gain, window_steps, scratch), 0)
 
-    return awac_loop(n, state, max_iter, cwinners, active0=active0)
+    state, iters, _ = awac_loop(n, state, max_iter, cwinners,
+                                active0=active0)
+    return state, iters
 
 
 def _awpm_batched(row, col, val, n: int, max_iter: int = 1000,
@@ -419,7 +465,7 @@ def _awpm_batched(row, col, val, n: int, max_iter: int = 1000,
     instances. Returns (MatchState with [B, n + 1] fields, awac_iters [B]),
     per instance bit-identical to ``single._awpm`` on the same backend.
     The batched engine behind ``api.solve``."""
-    window_steps = single._resolve_window_steps(row, n, window_steps)
+    window_steps = _resolve_window_steps_batched(row, n, window_steps)
     if row_ptr is None:
         row_ptr = batched_row_ptr_from_sorted(row, n)
     mate_row, mate_col = greedy_maximal_batched(row, col, val, n)

@@ -97,9 +97,10 @@ def awac_persistent_plain(row, col, val, row_ptr, mate_row, mate_col, u, v,
     from repro_torch.core.single import MatchState
 
     def cwinners(st):
-        return awac_cwinners_fused_batched(row, col, val, row_ptr, n, st,
-                                           min_gain, window_steps)
+        return (*awac_cwinners_fused_batched(row, col, val, row_ptr, n, st,
+                                             min_gain, window_steps), 0)
 
-    state, iters = awac_loop(n, MatchState(mate_row, mate_col, u, v),
-                             max_iter, cwinners, active0=go0.to(torch.bool))
+    state, iters, _ = awac_loop(n, MatchState(mate_row, mate_col, u, v),
+                                max_iter, cwinners,
+                                active0=go0.to(torch.bool))
     return (*state, iters)

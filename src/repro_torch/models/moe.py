@@ -254,13 +254,9 @@ def matching_route_batched(logits, k: int, capacity_per_round: int,
     round, the token -> expert-slot assignment is a heavy-weight perfect
     matching on the dense (token x slot) bipartite graph (slot s belongs to
     expert s // capacity_per_round), solved for all G groups in one batched
-    ``solve`` (K2 on the card). Same contract as ``awpm_route_batched``.
-    The distributed route (``dist_spec``) needs the 2D-grid engine, which
-    is not ported yet."""
-    if dist_spec is not None:
-        raise NotImplementedError(
-            "matching_route_batched(dist_spec=...): the 2D-grid distributed "
-            "engine is not ported to torch yet (ROADMAP.md, Queue 1, item 6)")
+    ``solve`` (K2 on the card), or on the 2D process grid ``dist_spec``
+    (a ``core.dist.GridSpec``; every rank routes the same logits). Same
+    contract as ``awpm_route_batched``."""
     g, t, e = logits.shape
     if t != e * capacity_per_round:
         raise ValueError(f"tokens {t} != slots {e * capacity_per_round}")
@@ -271,13 +267,14 @@ def matching_route_batched(logits, k: int, capacity_per_round: int,
     # dense (token x slot) COO, row-major == lex-sorted by (row, col)
     row = tvec.repeat_interleave(t).expand(g, t * t).contiguous()
     col = tvec.repeat(t).expand(g, t * t).contiguous()
-    opts = SolveOptions(max_iter=max_iter)
+    opts = SolveOptions(max_iter=max_iter, grid=dist_spec)
     experts, slots = [], []
     for r in range(k):
         a_r = torch.where(used, aff - 1e6, aff)
-        # val[g, i*t + s] = a_r[g, i, s // C]
-        val = a_r.repeat_interleave(capacity_per_round, dim=2).reshape(
-            g, t * t)
+        # val[g, i*t + s] = a_r[g, i, s // C]; the assignment is discrete,
+        # so the matching sees the affinities without their graph
+        val = a_r.detach().repeat_interleave(capacity_per_round,
+                                             dim=2).reshape(g, t * t)
         res = solve(MatchingProblem(row=row, col=col, val=val, n=t), opts)
         slot_of = res.mate_col[:, :t].long()  # token -> slot
         assign = slot_of // capacity_per_round
@@ -343,8 +340,8 @@ def moe_apply(p: MoE, x, cfg, moe, dist_spec=None):
     dispatch), each routed and scattered into its own [E, C_g, d] buffer.
     An AWPM group of ``gb`` tokens is padded with all-zero logits to a
     multiple of E and routed with a per-round capacity of that over E.
-    ``dist_spec`` (AWPM only) routes through ``matching_route_batched``,
-    which raises until the distributed engine is ported."""
+    ``dist_spec`` (AWPM only, a ``core.dist.GridSpec``) routes through
+    ``matching_route_batched`` on that process grid."""
     b, s, d = x.shape
     t = b * s
     e, k = moe.n_experts, moe.top_k

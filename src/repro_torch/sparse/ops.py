@@ -137,3 +137,75 @@ def batched_searchsorted_in_window(keys, q, lo, hi, n_steps: int):
         keys.reshape(-1), q.reshape(-1), (lo + offs).reshape(-1),
         (hi + offs).reshape(-1), n_steps=n_steps)
     return pos.reshape(q.shape) - offs, found.reshape(q.shape)
+
+
+INT64_MIN = -2**63
+_LOW32 = 0xFFFFFFFF
+
+
+def _order_key(values):
+    """float32 -> int32 key that orders like the floats in signed int32
+    order (-inf lowest, -0.0 just below +0.0)."""
+    bits = values.contiguous().view(torch.int32)
+    return torch.where(bits < 0, bits ^ INT32_MAX, bits)
+
+
+def _from_order_key(key):
+    bits = torch.where(key < 0, key ^ INT32_MAX, key)
+    return bits.contiguous().view(torch.float32)
+
+
+def segment_argmax_tie(values, tie, segment_ids, num_segments: int):
+    """Per-segment argmax with an explicit tie-break key: the largest
+    value wins, on a tie the smallest ``tie`` (int32 >= 0), then the
+    smallest index. Returns (seg_max [num_segments] float32, seg_idx
+    [num_segments] int32), seg_idx indexing ``values`` and -1 for a
+    segment with no entry or a max of -inf.
+
+    One packed pass, as the JAX reference runs it under x64: an int64 key
+    ``order_key(value) << 32 | ~tie`` reduced with ``amax``, then one
+    ``amin`` pass over the indices of the entries that hit their segment's
+    (value, tie). Entries of value -inf can win nothing, so they are left
+    out of both scatters instead of piling onto the caller's dump
+    segment."""
+    keep = (values != NEG).nonzero().squeeze(1)
+    v, t = values[keep], tie[keep]
+    seg = segment_ids[keep].long()
+    key = (_order_key(v).to(torch.int64) << 32) | (
+        (~t).to(torch.int64) & _LOW32)
+    out = torch.full((num_segments,), INT64_MIN, dtype=torch.int64,
+                     device=values.device)
+    out = out.scatter_reduce(0, seg, key, "amax", include_self=True)
+    empty = out == INT64_MIN
+    seg_max = torch.where(empty, NEG,
+                          _from_order_key((out >> 32).to(torch.int32)))
+    seg_tie = (~out).to(torch.int32)  # the low word holds ~tie
+    hit = (v == seg_max[seg]) & (t == seg_tie[seg])
+    idx = torch.where(hit, keep.to(torch.int32), INT32_MAX)
+    seg_idx = torch.full((num_segments,), INT32_MAX, dtype=torch.int32,
+                         device=values.device)
+    seg_idx = seg_idx.scatter_reduce(0, seg, idx, "amin", include_self=True)
+    seg_idx = torch.where((seg_max == NEG) | (seg_idx == INT32_MAX), -1,
+                          seg_idx)
+    return seg_max, seg_idx
+
+
+def batched_segment_argmax_tie(values, tie, segment_ids, num_segments: int):
+    """Batched ``segment_argmax_tie``: inputs are [B, m] with per-instance
+    segment ids in [0, num_segments], reduced as one flat offset-segment
+    reduction. The returned seg_idx is local (an index into instance b's
+    own [m] row; -1 if empty): within an instance the smallest flat index
+    is the smallest local one. Returns ([B, num_segments],
+    [B, num_segments])."""
+    b, m = values.shape
+    stride = num_segments + 1
+    offs = torch.arange(b, dtype=torch.int64,
+                        device=values.device)[:, None] * stride
+    seg_max, seg_idx = segment_argmax_tie(
+        values.reshape(-1), tie.reshape(-1),
+        (segment_ids.long() + offs).reshape(-1), b * stride)
+    seg_max = seg_max.reshape(b, stride)[:, :num_segments]
+    seg_idx = seg_idx.reshape(b, stride)[:, :num_segments]
+    row_offs = torch.arange(b, dtype=torch.int32,
+                            device=values.device)[:, None] * m
+    return seg_max, torch.where(seg_idx >= 0, seg_idx - row_offs, -1)

@@ -1,0 +1,163 @@
+"""Spawned gloo ranks for the torch port's grid tests, on the CPU.
+
+``run_grid`` starts one process per rank of a Pr x Pc grid
+(``torch.multiprocessing``, spawn), which meet on a ``FileStore`` in the
+test's own directory (no TCP port, so parallel test workers cannot
+collide), build the grid with ``make_grid(pr, pc, device="cpu")`` and run
+the same list of jobs. Each job is the name of a function below and its
+keyword arguments (numpy arrays and plain values); its result, or the
+error it raised, is pickled per rank. The whole run has a join timeout of
+its own, so a rank that deadlocks fails the test instead of the suite.
+"""
+from __future__ import annotations
+
+import datetime
+import pathlib
+import pickle
+import time
+
+import numpy as np
+
+#: the whole spawn's deadline; a collective gives up after a minute
+JOIN_TIMEOUT_S = 240
+
+
+def run_grid(pr: int, pc: int, jobs, workdir,
+             timeout: float = JOIN_TIMEOUT_S) -> list[dict]:
+    """Run ``jobs`` ([(name, function name, kwargs)]) on every rank of a
+    pr x pc grid of spawned gloo ranks. Returns one dict per rank: name ->
+    the job's result, or ("raised", error type, message)."""
+    import torch.multiprocessing as mp
+
+    workdir = pathlib.Path(workdir)
+    workdir.mkdir(parents=True, exist_ok=True)
+    (workdir / "jobs.pkl").write_bytes(pickle.dumps(jobs))
+    ctx = mp.start_processes(_rank_main, args=(pr, pc, str(workdir)),
+                             nprocs=pr * pc, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"{pr}x{pc} grid: the ranks did not finish within "
+                    f"{timeout} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    return [pickle.loads((workdir / f"rank{r}.pkl").read_bytes())
+            for r in range(pr * pc)]
+
+
+def _rank_main(rank: int, pr: int, pc: int, workdir: str):
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import make_grid
+
+    torch.set_num_threads(1)
+    work = pathlib.Path(workdir)
+    store = dist.FileStore(str(work / "store"), pr * pc)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=pr * pc,
+                            timeout=datetime.timedelta(seconds=60))
+    grid = make_grid(pr, pc, device="cpu")
+    out = {}
+    for name, fn, kwargs in pickle.loads((work / "jobs.pkl").read_bytes()):
+        try:
+            out[name] = JOBS[fn](grid, **kwargs)
+        except Exception as e:  # the test reads the error
+            out[name] = ("raised", type(e).__name__, str(e))
+    (work / f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _np(x):
+    return x.cpu().numpy()
+
+
+def job_driver(grid, row, col, val, n, backend="fused", packed=False,
+               state=None):
+    """``dist._DistBatchedAWPM(...).run``: mates, duals, iterations and
+    dropped."""
+    import torch
+
+    from repro_torch.core import dist as D
+    from repro_torch.core.single import MatchState
+
+    if state is not None:
+        state = MatchState(*(torch.from_numpy(x) for x in state))
+    drv = D._DistBatchedAWPM(grid, n, backend=backend, packed=packed)
+    st, iters, dropped = drv.run(row, col, val, state=state)
+    return dict(mate_row=_np(st.mate_row), mate_col=_np(st.mate_col),
+                u=_np(st.u), v=_np(st.v), iters=_np(iters),
+                dropped=int(dropped))
+
+
+def job_solve(grid, row, col, val, n, tap=None, **options):
+    """``solve()`` on the grid: the result's array fields. ``tap`` names
+    a corruption of the exchange, set for this call only."""
+    from repro_torch.core import MatchingProblem, SolveOptions, solve
+    from repro_torch.core import dist as D
+    from repro_torch.core.convert import problem_from_numpy, result_to_numpy
+
+    p = problem_from_numpy(row, col, val, n, device="cpu")
+    assert isinstance(p, MatchingProblem)
+    prev = D._EXCHANGE_TAP
+    D._EXCHANGE_TAP = None if tap is None else _TAPS[tap]
+    try:
+        r = solve(p, SolveOptions(grid=grid, **options))
+    finally:
+        D._EXCHANGE_TAP = prev
+    out = result_to_numpy(r)
+    out["execution"] = (r.execution.backend, r.execution.source)
+    return out
+
+
+def job_moe(grid, logits, k, cap):
+    """``models.moe.matching_route_batched`` through the grid."""
+    import torch
+
+    from repro_torch.models import moe as M
+
+    out = M.matching_route_batched(torch.from_numpy(logits), k, cap,
+                                   dist_spec=grid)
+    return [_np(x) for x in out[:3]]
+
+
+def _corrupt_weight(stage, outs, valid):
+    """Nudge the first valid weight of the stage-2 exchange."""
+    if stage != 2:
+        return outs, valid
+    w = outs[-1].clone()
+    hit = valid & (valid.cumsum(dim=1) == 1)
+    w[hit] = w[hit] + 1.0
+    return [*outs[:-1], w], valid
+
+
+def _drop_one(stage, outs, valid):
+    """Lose the first valid entry of the stage-1 exchange."""
+    if stage != 1:
+        return outs, valid
+    return outs, valid & ~(valid.cumsum(dim=1) == 1)
+
+
+_TAPS = {"corrupt_weight": _corrupt_weight, "drop_one": _drop_one}
+
+JOBS = {"driver": job_driver, "solve": job_solve, "moe": job_moe}
+
+
+def same(a, b) -> bool:
+    """Deep equality of two job results (arrays bit for bit)."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(
+            same(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and a.dtype == b.dtype \
+            and a.shape == b.shape and a.tobytes() == b.tobytes()
+    return a == b

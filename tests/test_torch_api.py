@@ -1,6 +1,6 @@
 """The port's ``solve()`` facade end to end against JAX ``solve()``, its
-device handling on the CPU, its input policies, and the parts that are
-not ported yet.
+device handling on the CPU, its input policies, the 1x1 grid, and the
+part that is not ported yet (warm start).
 
 ``weight`` is compared with rtol 1e-6: it is ``u[:n].sum()`` in float32,
 and torch and XLA add the n terms in different orders. Every other field
@@ -21,6 +21,7 @@ from repro_torch.core import (  # noqa: E402
     SolveOptions,
     batch,
     graph,
+    make_grid,
     preflight,
     single,
     solve,
@@ -189,13 +190,30 @@ def test_default_device_is_the_card():
                 build()
 
 
-def test_grid_and_warm_start_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-        SolveOptions(grid=object())
+def test_warm_start_is_not_ported_yet():
     p = _problem()
     prev = solve(p)
     with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
         solve(p, warm_start=prev)
+    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
+        solve(p, SolveOptions(grid=make_grid(1, 1, device="cpu")),
+              warm_start=prev)
+
+
+def test_solve_on_the_1x1_grid():
+    grid = make_grid(1, 1, device="cpu")
+    p = _problem()
+    want = solve(p)
+    for backend in ("auto", "fused", "reference", "torch", "cuda"):
+        r = solve(p, SolveOptions(grid=grid, backend=backend))
+        for k in ("mate_row", "mate_col", "awac_iters", "perfect"):
+            assert torch.equal(getattr(r, k), getattr(want, k)), (backend, k)
+        assert r.execution.backend == ("fused" if backend == "auto"
+                                       else backend)
+        assert r.execution.source == ("grid-default" if backend == "auto"
+                                      else "explicit")
+    with pytest.raises(ValueError, match="GridSpec"):
+        SolveOptions(grid=object())
 
 
 def test_input_policies_raise():

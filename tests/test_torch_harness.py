@@ -36,8 +36,10 @@ import numpy as np
 """
 
 
-def run_reference(body: str, inputs: dict, workdir) -> dict:
-    """Run ``body`` in a child process with the JAX package importable.
+def run_reference(body: str, inputs: dict, workdir,
+                  n_devices: int = 1) -> dict:
+    """Run ``body`` in a child process with the JAX package importable,
+    on ``n_devices`` fake CPU devices.
 
     ``body`` reads the dict ``IN`` (the numpy ``inputs``) and fills the
     dict ``OUT`` with numpy-convertible values; the filled ``OUT`` is
@@ -49,7 +51,7 @@ def run_reference(body: str, inputs: dict, workdir) -> dict:
               + textwrap.dedent(body)
               + f"\nnp.savez({str(dst)!r}, "
               "**{k: np.asarray(v) for k, v in OUT.items()})\n")
-    run_with_devices(script, 1)
+    run_with_devices(script, n_devices)
     with np.load(dst) as f:
         return {k: f[k] for k in f.files}
 

@@ -17,7 +17,8 @@ rounding of two softmax implementations (rtol 1e-6):
   - ``awpm_route_batched`` on the same kinds of input;
   - ``matching_route_batched`` over the port's ``solve()``;
   - ``moe_apply`` in float32 under both routers (several dispatch groups,
-    padded AWPM blocks), within 1e-5.
+    padded AWPM blocks), within 1e-5, and an AWPM layer routed through
+    the 1x1 grid (``dist_spec``) against JAX's shard_map route.
 """
 import dataclasses
 
@@ -27,6 +28,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import make_grid  # noqa: E402
 from repro_torch.models import moe as M  # noqa: E402
 from test_torch_harness import run_reference  # noqa: E402
 
@@ -92,6 +94,11 @@ for name, (router, fields) in LAYER.items():
         OUT[f"{name}__p__{key}"] = leaf
     y, aux = M.moe_apply(params, jnp.asarray(IN["x"]), cfg, cfg.moe)
     OUT[name + "__y"], OUT[name + "__aux"] = y, aux
+    if name == "awpm_block":  # routed through the 1x1 grid's engine
+        from repro.core.dist import GridSpec, make_mesh
+        y, _ = M.moe_apply(params, jnp.asarray(IN["x"]), cfg, cfg.moe,
+                           dist_spec=GridSpec(make_mesh((1, 1))))
+        OUT[name + "__y_grid"] = y
 """ % dict(topk=TOPK, route=ROUTE, match=MATCH, layer=LAYER,
            rounds=SWAP_ROUNDS, k=AWPM_K, mk=MATCH_K)
 
@@ -223,7 +230,7 @@ def test_matching_route_matches_jax(ref, name):
 
 def test_matching_route_refusals():
     lg = _t("m_normal")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="GridSpec"):
         M.matching_route_batched(lg, 2, 3, dist_spec=object())
     with pytest.raises(ValueError, match="slots"):
         M.matching_route_batched(lg, 2, 4)
@@ -279,5 +286,11 @@ def test_moe_apply_matches_jax(ref, name):
 
 def test_moe_apply_with_dist_spec_needs_the_grid_engine(ref):
     p, cfg = _layer(ref, "awpm_block")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="GridSpec"):
         M.moe_apply(p, _t("x"), cfg, cfg.moe, dist_spec=object())
+    with torch.no_grad():
+        y, aux = M.moe_apply(p, _t("x"), cfg, cfg.moe,
+                             dist_spec=make_grid(1, 1, device="cpu"))
+    np.testing.assert_allclose(y.numpy(), ref["awpm_block__y_grid"],
+                               rtol=Y_TOL, atol=Y_TOL)
+    assert float(aux) == 0.0
