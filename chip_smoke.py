@@ -3,7 +3,8 @@
 
 Builds the hand-written CUDA kernels from this checkout, drives the port's
 paths — ``solve()`` at the size a sparse direct solver hands to its
-matching step, and LM serving (``serve_lm``) on qwen2-0.5b and on the MoE
+matching step, locally and on the 1x1 grid, the matching service with
+warm-start rematching over a stream of requests, and LM serving (``serve_lm``) on qwen2-0.5b and on the MoE
 model qwen2-moe-a2.7b with the AWPM router, both at full width and depth —
 then bert4rec serving (``serve_recsys``) at its published size and the
 recsys EmbeddingBag and the dense cycle-gain tile through their public
@@ -34,6 +35,24 @@ and prints what it measured:
      one grid ``solve()`` under ``torch.profiler``; one ``plan()`` and
      two ``Matcher`` calls; an ``exchange_check`` run;
      phase 3's batch on the grid, every lane identical to phase 3;
+  3c. [serve] the matching service (``repro_torch.serving``) on the card:
+     an open-loop stream of 256 requests from 16 users at n = 4,096
+     (degree 16, 4,000 requests/s, 2% weight jitter, an edge dropped in
+     one repeat of ten) through ``MatchingService`` with warm start and
+     again without, every response perfect, most of them warm, the
+     persistent kernel launched on the service's path, and every warm
+     response equal to a direct ``solve(warm_start=)`` of its
+     class-embedded instance; phase 2's instance served in its exact
+     batch-1 class: cold, its unchanged repeat (equal bit for bit after
+     one AWAC round) and a perturbed repeat, with the warm split (repair,
+     MCM top-up, AWAC), one warm serve under ``torch.profiler`` and the
+     warm solve with backend "cuda" (the sweep kernel once per round);
+     the perturbed repeat's warm solve on the 1x1 grid, equal to the
+     local one; ``certify`` on a served n = 4,096 response and on phase
+     5's instance (sound against its exact optimum); static pivoting of 8
+     matrices of n = 512 on the card and on the CPU (equal permutations;
+     relative errors within 2e-9, printed beside those after the exact
+     maximum-product matching);
   4. the sweep kernel alone against its plain version on a mid-AWAC state
      of the phase-2 instance, with the median time of each, its device
      time and its launches' times. In phases 3 and 4 the sweep kernel is
@@ -148,11 +167,14 @@ from repro_torch.configs.base import recsys_shape  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     MIN_GAIN,
     MatchingProblem,
+    MatchState,
     SolveOptions,
     batch,
+    certify,
     dist,
     graph,
     make_grid,
+    pivot,
     plan,
     ref,
     single,
@@ -198,6 +220,15 @@ from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.param import count_params  # noqa: E402
 from repro_torch.models.recsys import embedding  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    MatchingService,
+    ServiceConfig,
+    SizeClass,
+    StreamSpec,
+    run_stream,
+    strip_instance,
+)
+from repro_torch.serving.loadgen import perturbed  # noqa: E402
 from repro_torch.sparse.csr import (  # noqa: E402
     batched_row_ptr_from_sorted,
     row_ptr_from_sorted,
@@ -205,6 +236,15 @@ from repro_torch.sparse.csr import (  # noqa: E402
 
 SINGLE = dict(n=1_048_576, avg_degree=16.0, kind="antigreedy", seed=0)
 BATCH = dict(b=16, n=65_536, avg_degree=8.0)
+# [serve]: the stream and the service, at the service's full class width
+SERVE_STREAM = dict(requests=256, users=16, n=4096, avg_degree=16.0,
+                    rate_rps=4000.0, weight_jitter=0.02, structure_churn=0.1,
+                    kind="uniform", seed=0)
+SERVE_CONFIG = dict(num_shards=4, deadline_s=0.002, max_batch=8)
+# static pivoting: relative error of a pivot-free LU after AWPM pivoting.
+# On this family the exact maximum-product matching itself reaches 9.05e-10
+# (NVIDIA H100 80GB HBM3, 700 W), so the bar sits above it
+PIVOT = dict(b=8, n=512, tol=2e-9)
 LM = dict(batch=4, prompt_len=2048, decode_steps=32, seed=0)
 QWEN2_0_5B_PARAMS = 494_032_768  # count_params(build_defs(cfg)) in JAX
 # fewer decode steps than [lm]: the AWPM router's loops run on the host
@@ -930,7 +970,313 @@ def phase_grid(log, kernels, single_run, batch_run):
                        split=splits, profile=prof, plan_s=t_plan,
                        matcher_s=[t1, t2],
                        check_s=t_chk, batch_s=t_b)
-    tdist.destroy_process_group()
+    return grid
+
+
+class RecordingService(MatchingService):
+    """The service, keeping each dispatched request's class-embedded
+    instance, seed and true n for the direct solves that check its
+    responses."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.dispatched = {}
+
+    def _dispatch(self, flush):
+        for r in flush.items:
+            self.dispatched[r.request_id] = (r.problem, r.seed, r.n)
+        super()._dispatch(flush)
+
+
+def mcm_batched_counted(row, col, val, n, mr, mc):
+    """``batch.mcm_loop`` over the full edge list, as ``mcm_batched`` runs
+    it, counting its phases and its BFS layers (calls of the parent
+    selection)."""
+    layers = 0
+
+    def parents(fr, vis):
+        nonlocal layers
+        layers += 1
+        return batch.bfs_parents_full(row, col, val, n, fr, vis)
+
+    mr, mc, phases = batch.mcm_loop(n, row.shape[0], mr, mc, parents)
+    return mr, mc, phases, layers
+
+
+def warm_split(problem, seed):
+    """The warm engine's phases on one instance ([1, cap]) from ``seed``,
+    each timed to a device sync: the repair, the MCM top-up (phases and
+    BFS layers), the dual build and AWAC ("auto": the persistent kernel).
+    Returns (the split, MatchState, AWAC rounds)."""
+    n = problem.n
+    row, col, val = (x[None] for x in (problem.row, problem.col,
+                                       problem.val))
+    out = {}
+    ws = batch._resolve_window_steps_batched(row, n, None)
+    rp = batched_row_ptr_from_sorted(row, n)
+    mr, mc = batch._normalize_mates_batched(seed[0][None], seed[1][None], 1,
+                                            n, row.device)
+    (mr, mc), out["repair_s"] = wall(lambda: batch.repair_mates_batched(
+        row, col, val, rp, n, mr, mc, ws))
+    out["unmatched_after_repair"] = int((mr[:, :n] == n).sum())
+    (mr, mc, out["mcm_phases"], out["mcm_layers"]), out["mcm_s"] = wall(
+        lambda: mcm_batched_counted(row, col, val, n, mr, mc))
+    st, out["duals_s"] = wall(lambda: batch._state_from_mates_windowed(
+        row, col, val, rp, n, mr, mc, ws))
+    (st, iters), out["awac_s"] = wall(lambda: batch.awac_batched(
+        row, col, val, n, st, row_ptr=rp, window_steps=ws))
+    return out, MatchState(*(x[0] for x in st)), int(iters[0])
+
+
+def same_stripped(got, want, what: str) -> None:
+    """Two stripped (numpy) results: mates, rounds and flags equal, weight
+    within rtol 1e-6."""
+    for k in ("mate_row", "mate_col", "awac_iters", "perfect"):
+        require(np.array_equal(getattr(got, k), getattr(want, k)),
+                f"{what}: {k} differs")
+    require(np.allclose(got.weight, want.weight, rtol=1e-6, atol=0),
+            f"{what}: weight differs beyond rtol 1e-6")
+
+
+def stream_text(summary, stats) -> str:
+    return (f"served {summary['served']} ({summary['served_warm']} warm / "
+            f"{summary['served_cold']} cold, {summary['degraded']} degraded, "
+            f"{summary['rejected']} rejected); on the stream's clock "
+            f"(lanes never queue behind one another there) throughput "
+            f"{summary['throughput_rps']:.1f} requests/s, latency p50 "
+            f"{summary['p50_us']:.0f} us, p95 {summary['p95_us']:.0f} us, "
+            f"p99 {summary['p99_us']:.0f} us; mean fill "
+            f"{summary['mean_fill']:.2f}, mean solve "
+            f"{summary['mean_solve_us']:.0f} us per batch; plan cache "
+            f"{stats['plan_resident']} resident, {stats['plan_cache']['hits']} "
+            f"hits / {stats['plan_cache']['misses']} misses; warm cache "
+            f"{stats['warm_cache']['served']} seeds served, "
+            f"{stats['warm_cache']['stale']} stale, "
+            f"{stats['warm_cache']['absent']} absent")
+
+
+def ill_system(n: int, seed: int):
+    """A diagonally weak matrix whose heavy entries sit on a hidden
+    permutation: pivot-free LU fails on it without a row permutation
+    (the JAX suite's ``tests/test_pivot.py::_ill_system``)."""
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(n, n)) * (rng.random((n, n)) < 0.2)
+    a[rng.permutation(n), np.arange(n)] = rng.uniform(5.0, 10.0, n) * \
+        rng.choice([-1, 1], n)
+    np.fill_diagonal(a, rng.uniform(0, 1e-8, n))
+    return a, a @ np.ones(n)
+
+
+def phase_serve(log, kernels, grid):
+    """[serve] The matching service and the warm-start engine on the card
+    (see the module docstring, 3c)."""
+    card = log["card"]
+    out = log["serve"] = {}
+
+    # the stream, with warm start and without
+    spec = StreamSpec(**SERVE_STREAM)
+    runs = {}
+    for mode in ("warm", "cold"):
+        svc = RecordingService(ServiceConfig(**SERVE_CONFIG,
+                                             warm_start=mode == "warm"))
+        backend.reset_launch_counts()
+        summary, t = wall(lambda: run_stream(svc, spec))
+        launches = backend.launch_counts()
+        rs = summary["responses"]
+        require(len(rs) == spec.requests and all(
+            r.ok and r.result.perfect for r in rs),
+            f"[serve] {mode}: a response is not ok or not perfect")
+        stats = svc.stats()
+        lane_solve = {(r.shard, r.dispatched_at, r.lane): r.solve_s
+                      for r in rs}
+        lanes = len(lane_solve)
+        # what one card holds: the stream's clock lets lanes overlap, so
+        # its throughput is about the offered rate; this is requests over
+        # the lanes' solve time, run one after another as the service does
+        busy_s = sum(lane_solve.values())
+        require(launches["awac_persistent"] == lanes,
+                f"[serve] {mode}: {launches['awac_persistent']} persistent "
+                f"kernel launches for {lanes} lanes")
+        classes = sorted({r.size_class for r in rs})
+        print(f"[serve] {mode}: {stream_text(summary, stats)}; {t:.2f} s for "
+              f"the stream; classes {classes}; {lanes} lanes, "
+              f"{busy_s * 1e3 / lanes:.1f} ms of solve per lane, "
+              f"{busy_s:.3f} s in all: {len(rs) / busy_s:.1f} requests per "
+              f"second of solve; persistent kernel launches "
+              f"{launches['awac_persistent']} ({card})")
+        runs[mode] = svc, summary
+        out[mode] = dict(wall_s=t, launches=launches, lanes=lanes,
+                         busy_s=busy_s, busy_rps=len(rs) / busy_s,
+                         classes=[dataclasses.astuple(c) for c in classes],
+                         stats=stats, **{k: v for k, v in summary.items()
+                                         if k != "responses"})
+    svc, summary = runs["warm"]
+    require(summary["served_warm"] > spec.requests // 2,
+            f"[serve] only {summary['served_warm']} of {spec.requests} "
+            f"served warm")
+    kernels["awac_persistent"]["launches"] += out["warm"]["launches"][
+        "awac_persistent"]
+
+    # every warm response against a direct warm solve of its instance
+    warm = [r for r in summary["responses"] if r.served_warm]
+    probs = [svc.dispatched[r.request_id] for r in warm]
+    pb = MatchingProblem(*(torch.stack([getattr(p, k) for p, _, _ in probs])
+                           .cuda() for k in ("row", "col", "val")),
+                         n=probs[0][0].n)
+    seeds = tuple(np.stack([s[i] for _, s, _ in probs]) for i in (0, 1))
+    direct, t_direct = wall(lambda: solve(pb, warm_start=seeds))
+    for i, (r, (_, _, n_true)) in enumerate(zip(warm, probs)):
+        same_stripped(r.result, strip_instance(direct, i, n_true, pb.n),
+                      f"[serve] warm response {r.request_id} vs a direct "
+                      f"solve(warm_start=)")
+    print(f"[serve] the {len(warm)} warm responses equal one direct "
+          f"solve(warm_start=) of their class-embedded instances "
+          f"({t_direct:.3f} s, B={len(warm)}; {card})")
+
+    # phase 2's instance in its exact batch-1 class
+    g = single_graph()
+    n = g.n
+    big = RecordingService(ServiceConfig(**SERVE_CONFIG))
+    clock = iter(range(100))
+
+    def serve(inst):
+        big.submit("solver", inst, now=float(next(clock)))
+        (resp,) = big.responses()
+        require(resp.ok and resp.result.perfect,
+                f"[serve] n={n}: not ok or not perfect")
+        return resp
+
+    r_cold, t_cold = wall(lambda: serve(g))
+    require(r_cold.lane == "cold" and r_cold.size_class == SizeClass(
+        n=n, cap=r_cold.size_class.cap, batch=1),
+        f"[serve] n={n}: {r_cold.lane} lane, class {r_cold.size_class}")
+    r_same, t_same = wall(lambda: serve(g))
+    require(r_same.served_warm and int(r_same.result.awac_iters) == 1,
+            f"[serve] n={n} repeat: warm {r_same.served_warm}, "
+            f"{int(r_same.result.awac_iters)} rounds")
+    for k in ("mate_row", "mate_col", "weight", "perfect"):
+        require(np.array_equal(getattr(r_same.result, k),
+                               getattr(r_cold.result, k)),
+                f"[serve] n={n}: the unchanged repeat's {k} differs")
+    gp = perturbed(g, np.random.default_rng(0), 0.02, 1.0)
+    require(gp.nnz == g.nnz - 1, "the perturbed repeat dropped no edge")
+    r_pert, t_pert = wall(lambda: serve(gp))
+    require(r_pert.served_warm, "[serve] the perturbed repeat was cold")
+    print(f"[serve] n={n} nnz={g.nnz} in class {r_cold.size_class}: solve_s "
+          f"cold {r_cold.solve_s:.3f} s, unchanged repeat (warm, 1 round, "
+          f"bit for bit) {r_same.solve_s:.3f} s, perturbed repeat (warm, "
+          f"{int(r_pert.result.awac_iters)} rounds) {r_pert.solve_s:.3f} s; "
+          f"with admission {t_cold:.2f} / {t_same:.2f} / {t_pert:.2f} s "
+          f"({card})")
+
+    # the warm split of the perturbed repeat, on its own
+    prob, seed, _ = big.dispatched[r_pert.request_id]
+    pc = MatchingProblem(prob.row.cuda(), prob.col.cuda(), prob.val.cuda(),
+                         n=prob.n)
+    split, st, iters = warm_split(pc, seed)
+    require(iters == int(r_pert.result.awac_iters) and np.array_equal(
+        st.mate_row.cpu().numpy(), r_pert.result.mate_row),
+        "[serve] the warm split differs from the served result")
+    print(f"[serve] warm split at n={n}: repair {split['repair_s']:.3f} s "
+          f"({split['unmatched_after_repair']} columns unmatched), MCM top-up "
+          f"{split['mcm_phases']} phases / {split['mcm_layers']} BFS layers "
+          f"{split['mcm_s']:.3f} s, duals {split['duals_s']:.3f} s, AWAC "
+          f"(persistent kernel) {split['awac_s']:.3f} s, {iters} rounds "
+          f"({card})")
+    box = []
+    prof = profiled(lambda: box.append(serve(gp)),
+                    f"[serve] a warm serve at n={n}",
+                    watch=("awac_loop_kernel", "scatter"))
+    k2 = prof["watch"]["awac_loop_kernel"]
+    require(k2["count"] >= 1,
+            "[serve] the profiled warm serve shows no persistent kernel")
+    print(f"[serve] the profiled warm serve: {prof['wall_s']:.3f} s wall, "
+          f"device busy {prof['device_busy_s']:.3f} s, the persistent "
+          f"kernel {k2['device_ms']:.3f} ms over {k2['count']} launch(es) "
+          f"({card})")
+    require(np.array_equal(box[0].result.mate_row, r_pert.result.mate_row),
+            "[serve] the profiled serve differs")
+
+    # the sweep kernel on the warm path, and the 1x1 grid
+    backend.reset_launch_counts()
+    r_k1, t_k1 = wall(lambda: solve(pc, SolveOptions(backend="cuda"),
+                                    warm_start=seed))
+    k1 = backend.launch_counts()["awac_sweep"]
+    require(k1 == int(r_k1.awac_iters) >= 1 and np.array_equal(
+        r_k1.mate_row.cpu().numpy(), r_pert.result.mate_row),
+        f"[serve] warm 'cuda': {k1} sweep launches, "
+        f"{int(r_k1.awac_iters)} rounds")
+    kernels["awac_sweep"]["launches"] += k1
+    r_loc, t_loc = wall(lambda: solve(pc, warm_start=seed))
+    r_grid, t_grid = wall(lambda: solve(pc, SolveOptions(grid=grid),
+                                        warm_start=seed))
+    require(r_grid.execution.warm_started, "[serve] grid: not warm started")
+    same_results(r_grid, r_loc, "[serve] warm start on the grid vs local")
+    same_results(r_k1, r_loc, "[serve] warm 'cuda' vs 'auto'")
+    print(f"[serve] warm solve() of the perturbed repeat: auto {t_loc:.3f} "
+          f"s, cuda {t_k1:.3f} s ({k1} sweep launches), on the 1x1 grid "
+          f"{t_grid:.3f} s; all identical ({card})")
+
+    # certificates
+    resp = warm[0]
+    cert, t_cert = wall(lambda: certify(svc.dispatched[resp.request_id][0],
+                                        resp.result))
+    require(cert.upper_bound >= cert.weight, "[serve] unsound certificate")
+    g400 = graph.generate(400, avg_degree=6.0, kind="antigreedy", seed=0)
+    p400 = MatchingProblem.from_graph(g400)
+    r400 = solve(p400)
+    cert400, t_cert400 = wall(lambda: certify(p400, r400))
+    _, opt = ref.exact_mwpm(g400.to_dense().astype(np.float32),
+                            g400.structure_dense())
+    scale = max(1.0, abs(float(opt)))
+    require(cert400.upper_bound >= float(opt) - 1e-6 * scale and
+            cert400.weight <= cert400.upper_bound + 1e-6 * scale,
+            f"[serve] n=400: bound {cert400.upper_bound} against the "
+            f"optimum {opt}")
+    print(f"[serve] certify: a served n={resp.size_class.n} response "
+          f"{t_cert:.3f} s (weight {cert.weight!r}, bound "
+          f"{cert.upper_bound!r}, ratio bound {cert.ratio_bound!r}, tight "
+          f"{cert.tight}, {cert.rounds} rounds); n=400 {t_cert400:.3f} s "
+          f"(bound {cert400.upper_bound!r} >= optimum {float(opt)!r}, ratio "
+          f"bound {cert400.ratio_bound!r}) ({card})")
+
+    # static pivoting, one batched solve for 8 matrices
+    mats, bs = zip(*(ill_system(PIVOT["n"], s) for s in range(PIVOT["b"])))
+    (perm, iters), t_perm = wall(lambda: pivot.batched_pivot_permutations(
+        mats))
+    (perm_cpu, iters_cpu), t_perm_cpu = wall(
+        lambda: pivot.batched_pivot_permutations(mats, device="cpu"))
+    require(np.array_equal(perm, perm_cpu) and np.array_equal(iters,
+                                                              iters_cpu),
+            "[serve] pivot permutations differ between the card and the CPU")
+    (xs, _), t_lu = wall(lambda: pivot.static_pivot_solve_batched(mats, bs))
+    ones = np.ones(PIVOT["n"])
+    errs = [pivot.relative_error(x, ones) for x in xs]
+    require(max(errs) <= PIVOT["tol"], f"[serve] pivoting errors {errs}")
+    # beside them, the same solves after the exact maximum-product matching
+    exact = []
+    for a, b in zip(mats, bs):
+        a_s, _, _ = pivot.equilibrate(a)
+        struct = a_s != 0
+        logw = np.where(struct, np.log(np.maximum(np.abs(a_s), 1e-30)),
+                        0.0).astype(np.float32)
+        mr, _ = ref.exact_mwpm(logw, struct)
+        exact.append(pivot.relative_error(pivot.static_pivot_solve(a, b, mr),
+                                          ones))
+    print(f"[serve] static pivoting, B={PIVOT['b']} n={PIVOT['n']}: "
+          f"permutations on the card {t_perm:.3f} s, on the CPU "
+          f"{t_perm_cpu:.3f} s, identical; AWAC rounds {iters.tolist()}; "
+          f"solves {t_lu:.2f} s; relative errors {[f'{e:.2e}' for e in errs]} "
+          f"(max {max(errs):.3e}, bar {PIVOT['tol']}; after the exact "
+          f"matching {[f'{e:.2e}' for e in exact]}) ({card})")
+    out.update(direct_s=t_direct, big=dict(
+        n=n, cls=dataclasses.astuple(r_cold.size_class),
+        solve_s=dict(cold=r_cold.solve_s, same=r_same.solve_s,
+                     perturbed=r_pert.solve_s),
+        split=split, profile=prof, solve_cuda_s=t_k1, solve_auto_s=t_loc,
+        grid_s=t_grid), certify_s=t_cert, certify_n400_s=t_cert400,
+        pivot=dict(card_s=t_perm, cpu_s=t_perm_cpu, solve_s=t_lu,
+                   errors=errs, exact_errors=exact))
 
 
 def phase_sweep(log, kernels, single_run):
@@ -1957,7 +2303,9 @@ def main(argv=None) -> int:
     phase_build(log)
     single_run = phase_single(log, kernels)
     batch_run = phase_batch(log, kernels)
-    phase_grid(log, kernels, single_run, batch_run)
+    grid = phase_grid(log, kernels, single_run, batch_run)
+    phase_serve(log, kernels, grid)
+    tdist.destroy_process_group()
     del batch_run
     phase_sweep(log, kernels, single_run)
     phase_profile(log, single_run[0])

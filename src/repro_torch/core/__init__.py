@@ -3,15 +3,19 @@ greedy maximal -> MCM -> AWAC 4-cycles) on torch tensors.
 
 Public surface: build a :class:`MatchingProblem`, tune
 :class:`SolveOptions` (``grid=make_grid(pr, pc)`` for the 2D process
-grid), call :func:`solve`, or :func:`plan` for a plan-once/run-many
-:class:`Matcher`.
+grid), call :func:`solve` (``warm_start=`` to seed it from an earlier
+matching), or :func:`plan` for a plan-once/run-many :class:`Matcher`;
+:func:`certify` bounds a result against the optimum, ``pivot`` turns
+matchings into static-pivoting row permutations.
 """
 from repro_torch.core import (
     api,
     batch,
     convert,
     dist,
+    dual,
     graph,
+    pivot,
     preflight,
     ref,
     single,
@@ -30,6 +34,7 @@ from repro_torch.core.api import (
 )
 from repro_torch.core.constants import MIN_GAIN
 from repro_torch.core.dist import ExchangeIntegrityError, GridSpec, make_grid
+from repro_torch.core.dual import DualCertificate, certify, dual_certificate
 from repro_torch.core.graph import BipartiteGraph, from_coo, generate, matrix_suite
 from repro_torch.core.preflight import (
     InfeasibleProblemError,
@@ -43,7 +48,9 @@ __all__ = [
     "batch",
     "convert",
     "dist",
+    "dual",
     "graph",
+    "pivot",
     "preflight",
     "ref",
     "single",
@@ -51,6 +58,7 @@ __all__ = [
     "MIN_GAIN",
     "ON_INVALID",
     "BipartiteGraph",
+    "DualCertificate",
     "ExchangeIntegrityError",
     "ExecutionInfo",
     "GridSpec",
@@ -63,6 +71,8 @@ __all__ = [
     "PreflightReport",
     "ProblemSpec",
     "SolveOptions",
+    "certify",
+    "dual_certificate",
     "from_coo",
     "generate",
     "make_grid",

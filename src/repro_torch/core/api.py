@@ -11,7 +11,8 @@ batched and distributed engines.
   - :func:`solve` — runs greedy maximal -> MCM -> AWAC on the problem's
     device, single or batched by the problem's shape, or on the 2D process
     grid of ``options.grid`` (``core.dist``), and returns a
-    :class:`MatchResult`.
+    :class:`MatchResult`; ``warm_start=`` seeds it from an earlier
+    matching (seed repair -> MCM top-up -> AWAC).
   - :func:`plan` -> :class:`Matcher` — the plan-once/run-many handle: the
     grid's per-block capacity, its bucket capacities, the pinned search
     depth and the engine are set up once, at plan time.
@@ -38,7 +39,11 @@ from repro_torch.core import single as _single
 from repro_torch.core.constants import MIN_GAIN
 from repro_torch.core.single import MatchState, resolve_device
 from repro_torch.kernels.backend import launch_counts
-from repro_torch.sparse.csr import max_row_nnz, window_depth
+from repro_torch.sparse.csr import (
+    batched_row_ptr_from_sorted,
+    max_row_nnz,
+    window_depth,
+)
 from repro_torch.sparse.partition import plan_block_cap
 
 #: every backend ``SolveOptions`` accepts. "auto" runs the persistent CUDA
@@ -344,12 +349,15 @@ class ExecutionInfo:
     ``ran_kernel``: for the kernel backends, True when a hand-written CUDA
     kernel was launched and False when its plain torch version ran (a CPU
     problem, or no AWAC round to run); None for the other backends.
+    ``warm_started``: True when the solve was seeded from earlier mates
+    (warm-start rematching) instead of greedy and MCM from scratch.
     """
 
     backend: str
     source: str
     device: str
     ran_kernel: bool | None = None
+    warm_started: bool = False
 
 
 @dataclasses.dataclass(frozen=True, eq=False)  # eq=False: tensor fields
@@ -442,20 +450,57 @@ def _finish(problem: MatchingProblem, result: MatchResult,
 
 
 def _execution(problem: MatchingProblem, backend: str, source: str,
-               launches_before: int) -> ExecutionInfo:
+               launches_before: int, warm_started: bool) -> ExecutionInfo:
     ran = None
     if backend in KERNEL_BACKENDS:
         ran = sum(launch_counts().values()) > launches_before
     return ExecutionInfo(backend=backend, source=source,
-                         device=str(problem.device), ran_kernel=ran)
+                         device=str(problem.device), ran_kernel=ran,
+                         warm_started=warm_started)
 
 
-def _refuse_warm_start(warm_start):
-    if warm_start is not None:
-        raise NotImplementedError(
-            "solve(warm_start=...): warm-start rematching is not ported to "
-            "torch yet; it comes with the serving tier (ROADMAP.md, Queue 1, "
-            "item 9)")
+def _shape(x) -> tuple:
+    return tuple(x.shape) if hasattr(x, "shape") else np.shape(x)
+
+
+def _warm_mates(problem: MatchingProblem, warm_start):
+    """A warm-start seed as a (mate_row, mate_col) pair of [B, n] or
+    [B, n + 1] tensors (a single instance's [n] or [n + 1] seed lifted to
+    B = 1), from an earlier :class:`MatchResult` or a pair of arrays or
+    tensors. A seed whose shape cannot belong to this problem raises
+    ValueError (the serving tier then falls back to the cold path); entry
+    values are not checked here: the engine's repair unmatches every stale
+    or garbage pair."""
+    if isinstance(warm_start, MatchResult):
+        mr, mc = warm_start.mate_row, warm_start.mate_col
+    elif isinstance(warm_start, (tuple, list)) and len(warm_start) == 2:
+        mr, mc = warm_start
+    else:
+        raise TypeError(
+            f"warm_start must be a MatchResult or a (mate_row, mate_col) "
+            f"pair, got {type(warm_start).__name__}")
+    n = problem.n
+    shp = _shape(mr)
+    if _shape(mc) != shp:
+        raise ValueError(
+            f"warm_start mate arrays disagree: {shp} vs {_shape(mc)}")
+    if problem.is_batched:
+        want = [(problem.batch_size, n), (problem.batch_size, n + 1)]
+    else:
+        want = [(n,), (n + 1,)]
+    if shp not in want:
+        raise ValueError(
+            f"warm_start shape {shp} does not fit the problem (expected "
+            f"one of {want}; stale seeds from a different n/batch must be "
+            f"discarded, not repaired)")
+    mr, mc = torch.as_tensor(mr), torch.as_tensor(mc)
+    return (mr, mc) if problem.is_batched else (mr[None], mc[None])
+
+
+def _lifted(problem: MatchingProblem):
+    """The problem's edge arrays with a leading batch axis."""
+    edges = (problem.row, problem.col, problem.val)
+    return edges if problem.is_batched else tuple(x[None] for x in edges)
 
 
 def solve(problem: MatchingProblem, options: SolveOptions | None = None, *,
@@ -468,42 +513,69 @@ def solve(problem: MatchingProblem, options: SolveOptions | None = None, *,
     problem. Returns a :class:`MatchResult`; bit-identical per instance on
     every route and backend.
 
-    ``warm_start`` (seeding from an earlier matching) is not ported yet
-    and raises NotImplementedError."""
+    ``warm_start`` (an earlier :class:`MatchResult` or a (mate_row,
+    mate_col) pair) seeds the pipeline from an earlier matching instead of
+    greedy and MCM from scratch: stale pairs are repaired against the
+    current edge list, a bounded MCM top-up closes the seed's deficiency
+    and AWAC runs from there. The result is still a matching of this
+    problem, and a seed that is already an AWAC fixed point of it comes
+    back bit-identical."""
     options = SolveOptions() if options is None else options
     _check_types(problem, options)
-    _refuse_warm_start(warm_start)
+    warm = None if warm_start is None else _warm_mates(problem, warm_start)
     problem, report = _apply_preflight(problem, options)
     if options.grid is not None:
-        result = _solve_dist(problem, options)
+        result = _solve_dist(problem, options, warm=warm)
         return _finish(problem, result, options, report)
     before = sum(launch_counts().values())
     backend = _single.resolve_backend(options.backend, problem.device)
-    engine = _batch._awpm_batched if problem.is_batched else _single._awpm
-    state, iters = engine(
-        problem.row, problem.col, problem.val, problem.n,
-        max_iter=options.max_iter, min_gain=options.min_gain,
-        backend=backend, window_steps=options.window_steps,
-        degrade_infeasible=True)
+    kw = dict(max_iter=options.max_iter, min_gain=options.min_gain,
+              backend=backend, window_steps=options.window_steps,
+              degrade_infeasible=True)
+    if warm is None:
+        engine = _batch._awpm_batched if problem.is_batched \
+            else _single._awpm
+        state, iters = engine(problem.row, problem.col, problem.val,
+                              problem.n, **kw)
+    else:
+        # a single instance is lifted to B = 1: the batched engine is
+        # bit-identical per instance to the single-instance one, so one
+        # warm engine serves both
+        state, iters = _batch._awpm_batched_from_state(
+            *_lifted(problem), problem.n, *warm, **kw)
+        if not problem.is_batched:
+            state = MatchState(*(x[0] for x in state))
+            iters = iters[0]
     result = _result(state, iters, problem.n, batched=problem.is_batched)
     source = "explicit" if options.backend != "auto" else "default"
     result = dataclasses.replace(
-        result, execution=_execution(problem, backend, source, before))
+        result, execution=_execution(problem, backend, source, before,
+                                     warm is not None))
     return _finish(problem, result, options, report)
 
 
 def _solve_dist(problem: MatchingProblem, options: SolveOptions,
-                driver=None) -> MatchResult:
+                driver=None, warm=None) -> MatchResult:
     """Grid dispatch: the distributed-batched engine on ``options.grid``,
     a single instance lifted to B = 1. Every rank partitions the same
     problem on the host and runs its own block; the result is replicated
-    on every rank."""
+    on every rank. With a ``warm`` seed, the repair, the MCM top-up and
+    the dual build run on the local batched engine, then one grid run
+    takes AWAC from that state."""
     grid = options.grid
     if problem.device != grid.device:
         raise ValueError(
             f"the problem lies on {problem.device} but the grid runs on "
             f"{grid.device}")
     before = sum(launch_counts().values())
+    state0 = None
+    if warm is not None:
+        edges = _lifted(problem)
+        state0 = _batch._warm_state_batched(
+            *edges, problem.n, *warm, batched_row_ptr_from_sorted(
+                edges[0], problem.n),
+            _batch._resolve_window_steps_batched(edges[0], problem.n,
+                                                 options.window_steps))
     row, col, val = (x.cpu().numpy() for x in
                      (problem.row, problem.col, problem.val))
     batched = problem.is_batched
@@ -516,7 +588,7 @@ def _solve_dist(problem: MatchingProblem, options: SolveOptions,
             packed=options.packed, backend=options._dist_backend(),
             window_steps=options.window_steps, degrade_infeasible=True,
             exchange_check=options.exchange_check)
-    state, iters, aux = driver.run(row, col, val)
+    state, iters, aux = driver.run(row, col, val, state=state0)
     # with exchange_check the engine sums a [dropped, integrity] pair;
     # otherwise aux is the plain global dropped counter
     aux = aux.reshape(-1).tolist()
@@ -544,7 +616,7 @@ def _solve_dist(problem: MatchingProblem, options: SolveOptions,
     result = _result(state, iters, problem.n, batched)
     source = "explicit" if options.backend != "auto" else "grid-default"
     return dataclasses.replace(result, execution=_execution(
-        problem, options._dist_backend(), source, before))
+        problem, options._dist_backend(), source, before, warm is not None))
 
 
 # --------------------------------------------------------------------------
@@ -641,10 +713,12 @@ class Matcher:
             pinned = dataclasses.replace(opts,
                                          window_steps=self._window_steps)
             return solve(problem, pinned, warm_start=warm_start)
-        _refuse_warm_start(warm_start)
+        warm = None if warm_start is None \
+            else _warm_mates(problem, warm_start)
         problem, report = _apply_preflight(problem, opts)
         try:
-            result = _solve_dist(problem, opts, driver=self._driver)
+            result = _solve_dist(problem, opts, driver=self._driver,
+                                 warm=warm)
         except ValueError as e:
             if "refusing to truncate" not in str(e):
                 raise

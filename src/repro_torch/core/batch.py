@@ -273,7 +273,7 @@ def trace_and_flip_batched(parent_col, visited, found, layers, mate_row,
     for t in range(steps):
         keep = (t < layers)[:, None]
         j_w = torch.where(active, _take(parent_col, cur), n)
-        win = batched_segment_min(widx, j_w, n + 1)
+        win = batched_segment_min(widx, j_w, n + 1, live=active)
         active2 = active & (_take(win, j_w) == widx)
         nxt = _take(mate_row, j_w)
         cur2 = torch.where(active2 & (nxt < n), nxt, cur)
@@ -304,9 +304,11 @@ def mcm_loop(n: int, b: int, mate_row, mate_col, parents_fn):
     """Masked MCM phase loop over the batched BFS + trace/flip bodies,
     parameterized by the per-layer parent selection (``parents_fn``, see
     ``mcm_bfs_loop``), so the distributed engine shares every mask and
-    commit. Returns (mate_row, mate_col)."""
+    commit. Returns (mate_row, mate_col, phases run)."""
     active = (mate_row[:, :n] == n).any(dim=1)
+    phases = 0
     while bool(active.any()):
+        phases += 1
         parent_col, visited, found, layers = mcm_bfs_loop(
             n, b, mate_row, mate_col, parents_fn)
         # frozen instances trace nothing: zero their layer counts + found
@@ -318,15 +320,16 @@ def mcm_loop(n: int, b: int, mate_row, mate_col, parents_fn):
         mate_row = torch.where(keep, mr2, mate_row)
         mate_col = torch.where(keep, mc2, mate_col)
         active = active & found & (mate_row[:, :n] == n).any(dim=1)
-    return mate_row, mate_col
+    return mate_row, mate_col, phases
 
 
 def mcm_batched(row, col, val, n: int, mate_row, mate_col):
     """Batched MCM: ``mcm_loop`` over the full edge list. Returns
     (mate_row, mate_col)."""
-    return mcm_loop(
+    mate_row, mate_col, _ = mcm_loop(
         n, row.shape[0], mate_row, mate_col,
         lambda fr, vis: bfs_parents_full(row, col, val, n, fr, vis))
+    return mate_row, mate_col
 
 
 # --------------------------------------------------------------------------
@@ -455,6 +458,119 @@ def awac_batched(row, col, val, n: int, state: MatchState,
     state, iters, _ = awac_loop(n, state, max_iter, cwinners,
                                 active0=active0)
     return state, iters
+
+
+# --------------------------------------------------------------------------
+# Warm-start rematching: seed the pipeline from earlier mate arrays
+# --------------------------------------------------------------------------
+
+
+def _normalize_mates_batched(mate_row, mate_col, b: int, n: int, device):
+    """Seed mates of shape [B, n] or [B, n + 1] (numpy or a tensor of any
+    int dtype, on any device) as int32 [B, n + 1] tensors on ``device``
+    with the sentinel slot pinned. A shape that cannot belong to the
+    problem raises ValueError: the caller decides whether that means "fall
+    back to cold" (serving) or "user error" (the facade)."""
+    mate_row = torch.as_tensor(mate_row).to(device=device, dtype=I32)
+    mate_col = torch.as_tensor(mate_col).to(device=device, dtype=I32)
+    if mate_row.shape != mate_col.shape:
+        raise ValueError(
+            f"warm-start mate arrays disagree: mate_row "
+            f"{tuple(mate_row.shape)} vs mate_col {tuple(mate_col.shape)}")
+    if tuple(mate_row.shape) == (b, n):
+        pad = torch.full((b, 1), n, dtype=I32, device=device)
+        mate_row = torch.cat([mate_row, pad], dim=1)
+        mate_col = torch.cat([mate_col, pad], dim=1)
+    elif tuple(mate_row.shape) == (b, n + 1):
+        mate_row, mate_col = mate_row.clone(), mate_col.clone()
+    else:
+        raise ValueError(
+            f"warm-start mate arrays must be [B, n] or [B, n + 1] = "
+            f"[{b}, {n + 1}], got {tuple(mate_row.shape)}")
+    mate_row[:, n] = n
+    mate_col[:, n] = n
+    return mate_row, mate_col
+
+
+def repair_mates_batched(row, col, val, row_ptr, n: int, mate_row, mate_col,
+                         window_steps: int):
+    """Repair seed mates against the current edge lists: a claimed pair
+    (i, j) survives only if it is mutual (``mate_col[i] == j``) and the
+    edge still exists (a membership probe through row i's CSR window). Any
+    out-of-range, one-sided or stale entry is unmatched on both sides, so
+    the output is a partial matching on existing edges whatever the seed
+    held. Returns (mate_row, mate_col), int32 [B, n + 1]."""
+    b = row.shape[0]
+    dev = row.device
+    jvec = _ivec(b, n, dev)
+    mr = mate_row[:, :n]
+    valid = (mr >= 0) & (mr < n)
+    i_s = mr.clamp(0, n)
+    lo = _take(row_ptr, i_s)
+    hi = torch.where(valid, _take(row_ptr, i_s + 1), lo)
+    _, found = batched_searchsorted_in_window(col, jvec, lo, hi,
+                                              n_steps=window_steps)
+    keep = valid & (_take(mate_col, i_s) == jvec) & found
+    bidx = torch.arange(b, device=dev)[:, None]
+    new_mr = torch.full((b, n + 1), n, dtype=I32, device=dev)
+    new_mr[:, :n] = torch.where(keep, mr, n)
+    new_mc = torch.full((b, n + 1), n, dtype=I32, device=dev)
+    # kept pairs are mutual, so their rows are distinct; every dropped pair
+    # writes n into slot n, and the sentinel is written last, after them
+    new_mc[bidx, torch.where(keep, i_s, n).long()] = torch.where(keep, jvec,
+                                                                 n)
+    new_mr[:, n] = n
+    new_mc[:, n] = n
+    return new_mr, new_mc
+
+
+def warm_mates_batched(row, col, val, row_ptr, n: int, mate_row, mate_col,
+                       window_steps: int):
+    """The repaired seed topped up by the pipeline's own batched MCM: the
+    warm-start replacement for the cold greedy and MCM phases. Each MCM
+    phase matches a free row or stops, so an intact seed runs none.
+    Returns (mate_row, mate_col)."""
+    mate_row, mate_col = repair_mates_batched(
+        row, col, val, row_ptr, n, mate_row, mate_col, window_steps)
+    return mcm_batched(row, col, val, n, mate_row, mate_col)
+
+
+def _warm_state_batched(row, col, val, n: int, mate_row, mate_col, row_ptr,
+                        window_steps: int) -> MatchState:
+    """The warm engine's phases before AWAC: the seed normalized, repaired
+    and topped up, then its duals built. The grid runs its AWAC from this
+    state. Returns a MatchState of [B, n + 1] fields."""
+    mate_row, mate_col = _normalize_mates_batched(
+        mate_row, mate_col, row.shape[0], n, row.device)
+    mate_row, mate_col = warm_mates_batched(
+        row, col, val, row_ptr, n, mate_row, mate_col, window_steps)
+    return _state_from_mates_windowed(row, col, val, row_ptr, n, mate_row,
+                                      mate_col, window_steps)
+
+
+def _awpm_batched_from_state(row, col, val, n: int, mate_row, mate_col,
+                             max_iter: int = 1000,
+                             min_gain: float = MIN_GAIN,
+                             backend: str = "auto", row_ptr=None,
+                             window_steps: int | None = None,
+                             degrade_infeasible: bool = False):
+    """Warm-start batched pipeline: repair the seed mates -> MCM top-up ->
+    AWAC, in place of greedy and MCM from scratch. Returns (MatchState,
+    awac_iters [B]), the contract of ``_awpm_batched``.
+
+    A seed that is an AWAC fixed point of the same instance (the earlier
+    result of an unchanged problem) keeps every pair, the top-up runs no
+    phase and AWAC stops after its first round: the seed matching comes
+    back bit-identical, mates, duals and weight."""
+    window_steps = _resolve_window_steps_batched(row, n, window_steps)
+    if row_ptr is None:
+        row_ptr = batched_row_ptr_from_sorted(row, n)
+    state = _warm_state_batched(row, col, val, n, mate_row, mate_col,
+                                row_ptr, window_steps)
+    return awac_batched(row, col, val, n, state, max_iter=max_iter,
+                        min_gain=min_gain, backend=backend, row_ptr=row_ptr,
+                        window_steps=window_steps,
+                        degrade_infeasible=degrade_infeasible)
 
 
 def _awpm_batched(row, col, val, n: int, max_iter: int = 1000,

@@ -504,7 +504,7 @@ def _make_awpm_dist_batched(spec: GridSpec, n: int, b: int, cap: int,
         else:
             mr, mc = batch.greedy_loop(n, b, greedy_propose, dev)
             t = mark("greedy_s", t)
-            mr, mc = batch.mcm_loop(n, b, mr, mc, mcm_parents)
+            mr, mc, _ = batch.mcm_loop(n, b, mr, mc, mcm_parents)
             t = mark("mcm_s", t)
             state0 = uv_state(mr, mc)
         state, iters, aux = batch.awac_loop(

@@ -171,7 +171,7 @@ def trace_and_flip(parent_col, visited, found, layers: int, mate_row,
     cur = widx
     for _ in range(layers):
         j_w = torch.where(active, parent_col[cur.long()], n)
-        win = segment_min(widx, j_w, n + 1)
+        win = segment_min(widx, j_w, n + 1, live=active)
         active = active & (win[j_w.long()] == widx)
         nxt = mate_row[j_w.long()]
         cur = torch.where(active & (nxt < n), nxt, cur)

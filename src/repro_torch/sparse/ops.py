@@ -9,6 +9,12 @@ Every reduction is an order-free max or min (``scatter_reduce`` with
 not depend on the order in which duplicates are combined — on the CPU or
 on the card. Empty segments hold the identities of ``jax.ops.segment_*``:
 ``-inf`` for a float max, ``INT32_MAX`` for an int32 min.
+
+Masked entries never reach a scatter in one heap: the engines mask most of
+an edge list in most rounds, and atomics that all hit the dump segment's
+one address serialize on the card. The max reductions leave ``-inf``
+entries out (they can win nothing), and the walkers' ``segment_min`` sends
+each entry that is not ``live`` to a slot of its own past the segments.
 """
 from __future__ import annotations
 
@@ -35,8 +41,17 @@ def segment_reduce(values, segment_ids, num_segments: int, op: str):
                               include_self=True)
 
 
-def segment_min(values, segment_ids, num_segments: int):
-    return segment_reduce(values, segment_ids, num_segments, "amin")
+def segment_min(values, segment_ids, num_segments: int, live=None):
+    """``jax.ops.segment_min``. With a ``live`` mask, the result holds the
+    live entries only: each other entry goes to a slot of its own past
+    ``num_segments``, so no masked entry contends for a segment and no
+    host read is needed to leave them out."""
+    if live is None:
+        return segment_reduce(values, segment_ids, num_segments, "amin")
+    m = values.shape[0]
+    spill = torch.arange(num_segments, num_segments + m, device=values.device)
+    seg = torch.where(live, segment_ids.long(), spill)
+    return segment_reduce(values, seg, num_segments + m, "amin")[:num_segments]
 
 
 def segment_max_with_payload(values, payload, segment_ids, num_segments: int):
@@ -46,8 +61,12 @@ def segment_max_with_payload(values, payload, segment_ids, num_segments: int):
     Two passes: a scatter-max of the values, then a scatter-min of the
     payload over the entries that hit their segment's max. Returns
     (seg_max [num_segments], seg_payload [num_segments] int32); segments
-    with no entries, or whose max is -inf, get (-inf, -1)."""
-    seg = segment_ids.long()
+    with no entries, or whose max is -inf, get (-inf, -1). Entries of
+    value -inf can win nothing and are left out of both scatters (one host
+    read for their count)."""
+    keep = (values != NEG).nonzero().squeeze(1)
+    values, payload = values[keep], payload[keep]
+    seg = segment_ids[keep].long()
     seg_max = segment_reduce(values, seg, num_segments, "amax")
     hit = values == seg_max[seg]
     cand = torch.where(hit, payload, INT32_MAX)
@@ -79,13 +98,14 @@ def batched_segment_max_with_payload(values, payload, segment_ids,
             seg_payload.reshape(b, num_segments))
 
 
-def batched_segment_min(values, segment_ids, num_segments: int):
-    """Batched ``segment_min`` over per-instance segments. Returns
-    [B, num_segments]."""
+def batched_segment_min(values, segment_ids, num_segments: int, live=None):
+    """Batched ``segment_min`` over per-instance segments, with the same
+    ``live`` mask. Returns [B, num_segments]."""
     b = values.shape[0]
     out = segment_min(values.reshape(-1),
                       _flat_segments(segment_ids, num_segments),
-                      b * num_segments)
+                      b * num_segments,
+                      live=None if live is None else live.reshape(-1))
     return out.reshape(b, num_segments)
 
 

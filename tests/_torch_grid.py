@@ -96,9 +96,10 @@ def job_driver(grid, row, col, val, n, backend="fused", packed=False,
                 dropped=int(dropped))
 
 
-def job_solve(grid, row, col, val, n, tap=None, **options):
+def job_solve(grid, row, col, val, n, tap=None, warm=None, **options):
     """``solve()`` on the grid: the result's array fields. ``tap`` names
-    a corruption of the exchange, set for this call only."""
+    a corruption of the exchange, set for this call only; ``warm``, a
+    (mate_row, mate_col) pair, seeds the solve."""
     from repro_torch.core import MatchingProblem, SolveOptions, solve
     from repro_torch.core import dist as D
     from repro_torch.core.convert import problem_from_numpy, result_to_numpy
@@ -108,11 +109,12 @@ def job_solve(grid, row, col, val, n, tap=None, **options):
     prev = D._EXCHANGE_TAP
     D._EXCHANGE_TAP = None if tap is None else _TAPS[tap]
     try:
-        r = solve(p, SolveOptions(grid=grid, **options))
+        r = solve(p, SolveOptions(grid=grid, **options), warm_start=warm)
     finally:
         D._EXCHANGE_TAP = prev
     out = result_to_numpy(r)
     out["execution"] = (r.execution.backend, r.execution.source)
+    out["warm_started"] = r.execution.warm_started
     return out
 
 

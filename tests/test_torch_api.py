@@ -1,6 +1,7 @@
 """The port's ``solve()`` facade end to end against JAX ``solve()``, its
-device handling on the CPU, its input policies, the 1x1 grid, and the
-part that is not ported yet (warm start).
+device handling on the CPU, its input policies, the 1x1 grid, and warm
+start from an earlier result (``tests/test_torch_warm.py`` holds warm
+start against JAX).
 
 ``weight`` is compared with rtol 1e-6: it is ``u[:n].sum()`` in float32,
 and torch and XLA add the n terms in different orders. Every other field
@@ -191,13 +192,17 @@ def test_default_device_is_the_card():
 
 
 def test_warm_start_is_not_ported_yet():
+    """Warm start from the earlier result of the same problem returns it
+    unchanged, after one AWAC round, locally and on the 1x1 grid."""
     p = _problem()
     prev = solve(p)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        solve(p, warm_start=prev)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        solve(p, SolveOptions(grid=make_grid(1, 1, device="cpu")),
-              warm_start=prev)
+    grid = SolveOptions(grid=make_grid(1, 1, device="cpu"))
+    for r in (solve(p, warm_start=prev), solve(p, grid, warm_start=prev)):
+        assert r.execution.warm_started
+        assert int(r.awac_iters) == 1
+        for k in ("mate_row", "mate_col", "weight", "perfect"):
+            assert torch.equal(getattr(r, k), getattr(prev, k)), k
+    assert not prev.execution.warm_started
 
 
 def test_solve_on_the_1x1_grid():

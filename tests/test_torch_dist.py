@@ -478,6 +478,9 @@ def test_matcher_denser_than_prototype_gives_replan_error():
 
 
 def test_matcher_grid_rejects_cap_mismatch_and_warm_start():
+    """A grid ``Matcher`` rejects a problem off its planned cap and a warm
+    start that does not fit the problem; a fitting warm start from its own
+    cold result returns that result after one AWAC round."""
     grid = make_grid(1, 1, device="cpu")
     p, _ = _problem()
     matcher = plan(p, SolveOptions(grid=grid))
@@ -485,8 +488,14 @@ def test_matcher_grid_rejects_cap_mismatch_and_warm_start():
                             val=p.val[:, :-8], n=p.n)
     with pytest.raises(ValueError, match="planned cap"):
         matcher(wrong)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        matcher(p, warm_start=matcher(p))
+    cold = matcher(p)
+    warm = matcher(p, warm_start=cold)  # a fixed-point seed, on the grid
+    assert warm.execution.warm_started and not cold.execution.warm_started
+    assert (warm.awac_iters == 1).all()
+    for k in ("mate_row", "mate_col", "perfect"):
+        assert torch.equal(getattr(warm, k), getattr(cold, k)), k
+    with pytest.raises(ValueError, match="does not fit the problem"):
+        matcher(p, warm_start=(cold.mate_row[:1], cold.mate_col[:1]))
     # planned from a bare spec: the worst-case block bound
     m2 = plan(ProblemSpec(n=p.n, cap=p.cap, batch=p.batch_size),
               SolveOptions(grid=grid))

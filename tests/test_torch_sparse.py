@@ -110,6 +110,27 @@ def test_segment_min_and_batched(ref):
     assert ref["smin"][3] == np.iinfo(np.int32).max  # empty-segment identity
 
 
+def test_segment_min_of_live_entries(ref):
+    """With a ``live`` mask the masked entries reach no segment: the dump
+    segment's entries masked, every other segment equals JAX's min and
+    the dump holds the identity; a random mask equals a numpy min over
+    the live entries alone."""
+    seg, pay = _t("seg"), _t("payload")
+    live = seg != S - 1
+    got = ops.batched_segment_min(pay, seg, S, live=live)
+    _eq(got[:, :S - 1], ref["bsmin"][:, :S - 1])
+    assert (got[:, S - 1] == np.iinfo(np.int32).max).all()
+    _eq(ops.segment_min(pay[0], seg[0], S, live=live[0])[:S - 1],
+        ref["smin"][:S - 1])
+    mask = np.random.default_rng(3).random(seg.shape) < 0.5
+    want = np.full((B, S), np.iinfo(np.int32).max, np.int32)
+    for b in range(B):
+        np.minimum.at(want[b], INPUTS["seg"][b][mask[b]],
+                      INPUTS["payload"][b][mask[b]])
+    _eq(ops.batched_segment_min(pay, seg, S, live=torch.from_numpy(mask)),
+        want)
+
+
 def test_lex_searchsorted(ref):
     pos, found = ops.lex_searchsorted(_t("row")[0], _t("col")[0], _t("q_r"),
                                       _t("q_c"))
