@@ -4,9 +4,11 @@
 Builds the hand-written CUDA kernels from this checkout, drives the port's
 paths — ``solve()`` at the size a sparse direct solver hands to its
 matching step, locally and on the 1x1 grid, the matching service with
-warm-start rematching over a stream of requests, and LM serving (``serve_lm``) on qwen2-0.5b and on the MoE
-model qwen2-moe-a2.7b with the AWPM router, both at full width and depth —
-then bert4rec serving (``serve_recsys``) at its published size and the
+warm-start rematching over a stream of requests, the resilience layer
+(guarded solves, the chaos matrix, a resilient service), the
+static-pivoting sparse solver, and LM serving (``serve_lm``) on
+qwen2-0.5b and on the MoE model qwen2-moe-a2.7b with the AWPM router,
+both at full width and depth — then bert4rec serving (``serve_recsys``) at its published size and the
 recsys EmbeddingBag and the dense cycle-gain tile through their public
 entries, holds each kernel against its plain torch version on the card,
 and prints what it measured:
@@ -53,6 +55,37 @@ and prints what it measured:
      matrices of n = 512 on the card and on the CPU (equal permutations;
      relative errors within 2e-9, printed beside those after the exact
      maximum-product matching);
+  3d. [resilient] the guard (``runtime.resilient``) on the card, with
+     ``verify`` and ``verify_convergence`` on: phase 2's instance through
+     ``resilient_solve`` with "auto", which must be served by "local
+     cuda_persistent" at the first try, not degraded, bit for bit as the
+     direct ``solve()``; the guard's split (solve, verify with its host
+     copies, audit) and ``verify_result`` alone; ``certify=True`` at
+     n = 4,096 (the certificate's descent at n = 2^20 would run n rounds
+     on the host); the 1x1 grid, which must serve as "grid 1x1 (fused)";
+     the persistent kernel failing (served by "local cuda", the sweep
+     kernel once per round) and both kernels failing (served by "local
+     torch"); phase 3's batch through a ``ResilientMatcher``, twice;
+  3e. [chaos] the detect-vs-survive matrix (``runtime.chaos``) on the 1x1
+     grid: 28 cases (JAX's 2x4 matrix has 29; one row has no partial
+     loss), every record ok, the sweep kernel launched by the
+     ``flip_converged`` detect case (backend "cuda") and the persistent
+     kernel by the cases that degrade to the local chain;
+  3f. [serve] resilient: 3c's stream again through
+     ``ServiceConfig(resilient=True)``, every response equal to the
+     plain service's (timing fields aside) and naming "local
+     cuda_persistent" at the first try; ``solve_s`` per lane with the
+     guard and without;
+  3g. [solver] the static-pivoting solver (``repro_torch.solver``): six
+     Matrix Market fixtures and three planted systems under the arms
+     awpm, reference, none and tpp through ``solve_linear_system`` with
+     the matching and the triangular sweeps on the card; every awpm row
+     at or below a 1e-10 residual, one case at least where the unpivoted
+     arm fails and awpm converges; every awpm row launching the
+     persistent kernel; flags and sweeps as on the CPU; per row the
+     matching, LU and refinement times; then the planted ill-conditioned
+     system at n = 4,096 through the awpm arm, with the device operations
+     and device time of one float32 solve through its factors;
   4. the sweep kernel alone against its plain version on a mid-AWAC state
      of the phase-2 instance, with the median time of each, its device
      time and its launches' times. In phases 3 and 4 the sweep kernel is
@@ -228,7 +261,25 @@ from repro_torch.serving import (  # noqa: E402
     run_stream,
     strip_instance,
 )
+from repro_torch.runtime.chaos import (  # noqa: E402
+    assert_all_ok,
+    failing_backend,
+    run_chaos_matrix,
+)
+from repro_torch.runtime.resilient import (  # noqa: E402
+    ResilientMatcher,
+    ResilientOptions,
+    resilient_solve,
+    verify_result,
+)
 from repro_torch.serving.loadgen import perturbed  # noqa: E402
+from repro_torch.solver import (  # noqa: E402
+    CsrMatrix,
+    lu_solve_once,
+    solve_linear_system,
+    sparse_lu,
+)
+from repro_torch.solver import experiments as solver_experiments  # noqa: E402
 from repro_torch.sparse.csr import (  # noqa: E402
     batched_row_ptr_from_sorted,
     row_ptr_from_sorted,
@@ -240,6 +291,9 @@ BATCH = dict(b=16, n=65_536, avg_degree=8.0)
 SERVE_STREAM = dict(requests=256, users=16, n=4096, avg_degree=16.0,
                     rate_rps=4000.0, weight_jitter=0.02, structure_churn=0.1,
                     kind="uniform", seed=0)
+# [solver] at scale: the planted ill-conditioned system at an order a
+# sparse direct solver meets, past the fixtures' n <= 64
+SOLVER_SCALE = dict(n=4096, seed=5)
 SERVE_CONFIG = dict(num_shards=4, deadline_s=0.002, max_batch=8)
 # static pivoting: relative error of a pivot-free LU after AWPM pivoting.
 # On this family the exact maximum-product matching itself reaches 9.05e-10
@@ -1111,6 +1165,7 @@ def phase_serve(log, kernels, grid):
                          stats=stats, **{k: v for k, v in summary.items()
                                          if k != "responses"})
     svc, summary = runs["warm"]
+    plain = summary
     require(summary["served_warm"] > spec.requests // 2,
             f"[serve] only {summary['served_warm']} of {spec.requests} "
             f"served warm")
@@ -1277,6 +1332,273 @@ def phase_serve(log, kernels, grid):
         grid_s=t_grid), certify_s=t_cert, certify_n400_s=t_cert400,
         pivot=dict(card_s=t_perm, cpu_s=t_perm_cpu, solve_s=t_lu,
                    errors=errs, exact_errors=exact))
+    return plain
+
+
+def launched(fn):
+    """(result, seconds, launch counts) of ``fn()``: the counts set to 0
+    just before it and read just after, the time ending in a sync."""
+    backend.reset_launch_counts()
+    out, t = wall(fn)
+    return out, t, backend.launch_counts()
+
+
+def guard_text(rr) -> str:
+    """The guard's split of one served request."""
+    sp = rr.report.split
+    solve_s = sum(a.wall_s for a in rr.report.attempts)
+    return (f"solve {solve_s:.3f} s, verify {sp.get('verify_s', 0.0):.3f} s "
+            f"(host copies {sp.get('host_copy_s', 0.0):.3f} s, "
+            f"{sp.get('host_bytes', 0) / 1e6:.1f} MB), audit "
+            f"{sp.get('audit_s', 0.0):.3f} s, certificate "
+            f"{sp.get('certify_s', 0.0):.3f} s")
+
+
+def served_first(rr, rung: str, what: str) -> None:
+    """A clean case must be served by its first rung, not degraded."""
+    require(rr.report.backend_used == rung and not rr.report.degraded
+            and len(rr.report.attempts) == 1,
+            f"{what}: {rr.report.summary()} (want {rung}, first try)")
+
+
+def phase_resilient(log, kernels, grid, single_run, batch_run):
+    """[resilient] The guard (``runtime.resilient``) on the card: the
+    phase-2 instance and the phase-3 batch through ``resilient_solve``
+    and ``ResilientMatcher``, clean (served by the first rung, never
+    degraded), on the 1x1 grid, and with the kernel rungs failing."""
+    card = log["card"]
+    out = log["resilient"] = {}
+    p, r_local = single_run[0], single_run[6]
+    pb, rb = batch_run
+    guard = ResilientOptions(verify_convergence=True)
+
+    # the main path: "auto" starts the chain at the persistent kernel
+    rr, t, k = launched(lambda: resilient_solve(p, resilience=guard))
+    served_first(rr, "local cuda_persistent", "[resilient] clean")
+    require(k["awac_persistent"] >= 1, f"[resilient] clean launches {k}")
+    same_results(rr.result, r_local, "[resilient] clean vs solve()")
+    kernels["awac_persistent"]["launches"] += k["awac_persistent"]
+    fails, t_verify = wall(lambda: verify_result(p, rr.result))
+    require(fails == (), f"[resilient] verify_result: {fails}")
+    print(f"[resilient] n={p.n}: served by {rr.report.backend_used} in "
+          f"{t:.2f} s ({guard_text(rr)}); verify_result alone "
+          f"{t_verify:.3f} s; launches {k} ({card})")
+    out["clean"] = dict(wall_s=t, split=rr.report.split,
+                        solve_s=rr.report.attempts[0].wall_s,
+                        verify_result_s=t_verify, launches=k)
+
+    # the certificate, at the serve class's n (at n = 2^20 its descent
+    # runs n rounds over 16.7M edges on the host: PERF.md, Open questions)
+    g = graph.generate(SERVE_STREAM["n"], avg_degree=SERVE_STREAM[
+        "avg_degree"], kind="antigreedy", seed=0)
+    pc = MatchingProblem.from_graph(g)
+    rc, t_c, k = launched(lambda: resilient_solve(
+        pc, resilience=ResilientOptions(verify_convergence=True,
+                                        certify=True)))
+    served_first(rc, "local cuda_persistent", "[resilient] certify")
+    cert = rc.report.certificate
+    require(cert is not None and cert.upper_bound >= cert.weight,
+            "[resilient] the certificate is missing or unsound")
+    kernels["awac_persistent"]["launches"] += k["awac_persistent"]
+    print(f"[resilient] n={pc.n} with certify=True: {t_c:.2f} s "
+          f"({guard_text(rc)}); bound {cert.upper_bound!r} over weight "
+          f"{cert.weight!r}, {cert.rounds} rounds, tight {cert.tight} "
+          f"({card})")
+    out["certify"] = dict(n=pc.n, wall_s=t_c, split=rc.report.split,
+                          rounds=cert.rounds, tight=cert.tight)
+
+    # the grid rung, on the 1x1 NCCL grid
+    rg, t_g, _ = launched(lambda: resilient_solve(
+        p, SolveOptions(grid=grid), resilience=guard))
+    served_first(rg, "grid 1x1 (fused)", "[resilient] grid")
+    same_results(rg.result, r_local, "[resilient] grid vs solve()")
+
+    # injected failures: the persistent kernel down, then both kernels
+    with failing_backend("cuda_persistent"):
+        r1, t1, k = launched(lambda: resilient_solve(p, resilience=guard))
+    require(r1.report.backend_used == "local cuda" and r1.report.degraded,
+            f"[resilient] K2 down: {r1.report.summary()}")
+    require(k["awac_sweep"] == int(r1.result.awac_iters) >= 1,
+            f"[resilient] K2 down: sweep launches {k}")
+    same_results(r1.result, r_local, "[resilient] local cuda vs solve()")
+    kernels["awac_sweep"]["launches"] += k["awac_sweep"]
+    with failing_backend("cuda_persistent", "cuda"):
+        r2, t2, k2 = launched(lambda: resilient_solve(p, resilience=guard))
+    require(r2.report.backend_used == "local torch" and
+            k2["awac_sweep"] == k2["awac_persistent"] == 0,
+            f"[resilient] both kernels down: {r2.report.summary()}, {k2}")
+    same_results(r2.result, r_local, "[resilient] local torch vs solve()")
+    print(f"[resilient] grid: {rg.report.summary()} in {t_g:.2f} s; K2 "
+          f"failing: {r1.report.summary()} in {t1:.2f} s ({k['awac_sweep']} "
+          f"sweep launches); K1 and K2 failing: {r2.report.summary()} in "
+          f"{t2:.2f} s; all identical to solve() ({card})")
+
+    # the batch through a ResilientMatcher, twice (the second call reuses
+    # the planned matcher)
+    m = ResilientMatcher(pb, resilience=guard)
+    rm, t_m1, k = launched(lambda: m(pb))
+    served_first(rm, "local cuda_persistent", "[resilient] batch")
+    same_results(rm.result, rb, "[resilient] batch vs solve()")
+    kernels["awac_persistent"]["launches"] += k["awac_persistent"]
+    rm2, t_m2, k2 = launched(lambda: m(pb))
+    served_first(rm2, "local cuda_persistent", "[resilient] batch again")
+    require(k2["awac_persistent"] == 1,
+            f"[resilient] batch again: launches {k2}")
+    same_results(rm2.result, rb, "[resilient] batch again vs solve()")
+    kernels["awac_persistent"]["launches"] += k2["awac_persistent"]
+    print(f"[resilient] B={pb.batch_size} n={pb.n} through a "
+          f"ResilientMatcher: {t_m1:.2f} s then {t_m2:.2f} s "
+          f"({guard_text(rm2)}); launches {k} then {k2} ({card})")
+    out.update(grid_s=t_g, k2_down_s=t1, kernels_down_s=t2,
+               batch_s=[t_m1, t_m2], batch_split=rm2.report.split)
+
+
+def phase_chaos(log, kernels):
+    """[chaos] The detect-vs-survive matrix (``runtime.chaos``) on the
+    1x1 grid of the card; the matrix prints its records."""
+    card = log["card"]
+    records, t, k = launched(lambda: run_chaos_matrix(1, 1, n=48))
+    assert_all_ok(records)
+    cases = [(r["fault"], r["mode"]) for r in records]
+    require(len(cases) == 28 and ("device_loss_partial", "survive")
+            not in cases, f"[chaos] {len(cases)} cases")
+    detail = {f"{r['fault']} {r['mode']}": r["detail"] for r in records}
+    require("local cuda_persistent" in detail["drop@stage1 survive"],
+            f"[chaos] {detail['drop@stage1 survive']}")
+    require(k["awac_sweep"] >= 1 and k["awac_persistent"] >= 1,
+            f"[chaos] launches {k}: the detect case must run the sweep "
+            f"kernel, the survive cases the persistent one")
+    kernels["awac_sweep"]["launches"] += k["awac_sweep"]
+    kernels["awac_persistent"]["launches"] += k["awac_persistent"]
+    print(f"[chaos] {len(records)} cases on the 1x1 grid, all ok, in "
+          f"{t:.2f} s; launches {k}; JAX's 2x4 matrix has 29: the 1x1 grid "
+          f"has no row to lose without the grid, so no device_loss_partial "
+          f"({card})")
+    log["chaos"] = dict(wall_s=t, launches=k, records=records)
+
+
+def phase_serve_resilient(log, kernels, plain):
+    """[serve] resilient: the 256-request stream again, through
+    ``ServiceConfig(resilient=True)``; every response as the plain
+    service's, served by the persistent kernel's rung."""
+    card = log["card"]
+    spec = StreamSpec(**SERVE_STREAM)
+    svc = MatchingService(ServiceConfig(**SERVE_CONFIG, resilient=True))
+    summary, t, k = launched(lambda: run_stream(svc, spec))
+    rs, ps = summary["responses"], plain["responses"]
+    require(len(rs) == len(ps) == spec.requests, "[serve] resilient: count")
+    for r, q in zip(rs, ps):
+        require(r.resilience == "served by local cuda_persistent after 1 "
+                "attempt(s)", f"[serve] resilient {r.request_id}: "
+                f"{r.resilience}")
+        for f in ("request_id", "key", "shard", "size_class", "ok", "error",
+                  "served_warm", "lane", "batch_fill", "flush_reason",
+                  "submitted_at", "dispatched_at"):
+            require(getattr(r, f) == getattr(q, f),
+                    f"[serve] resilient {r.request_id}: {f} differs")
+        same_stripped(r.result, q.result,
+                      f"[serve] resilient {r.request_id}")
+    lanes = {}
+    for name, resp in (("plain", ps), ("resilient", rs)):
+        lanes[name] = {(r.shard, r.dispatched_at, r.lane): r.solve_s
+                       for r in resp}
+    n_lanes = len(lanes["plain"])
+    require(k["awac_persistent"] == n_lanes,
+            f"[serve] resilient: {k['awac_persistent']} persistent launches "
+            f"for {n_lanes} lanes")
+    kernels["awac_persistent"]["launches"] += k["awac_persistent"]
+    per = {name: sum(v.values()) / n_lanes for name, v in lanes.items()}
+    print(f"[serve] resilient: {len(rs)} responses equal the plain "
+          f"service's, each served by local cuda_persistent at the first "
+          f"try; {t:.2f} s for the stream; solve_s per lane "
+          f"{per['resilient'] * 1e3:.2f} ms with the guard, "
+          f"{per['plain'] * 1e3:.2f} ms without; persistent kernel launches "
+          f"{k['awac_persistent']} ({card})")
+    log["serve"]["resilient"] = dict(
+        wall_s=t, launches=k, lanes=n_lanes,
+        solve_ms_per_lane=dict(plain=per["plain"] * 1e3,
+                               resilient=per["resilient"] * 1e3))
+
+
+def phase_solver(log, kernels):
+    """[solver] The static-pivoting solver (``repro_torch.solver``): the
+    six fixtures and three planted systems under the four arms, the
+    matching and the sweeps on the card; the two absolute claims; the
+    same run on the CPU."""
+    card = log["card"]
+    (rows, failures), t, k = launched(lambda: solver_experiments.run(
+        log=lambda *a: None))
+    require(failures == [], f"[solver] claims: {failures}")
+    (cpu_rows, cpu_fail), t_cpu = wall(lambda: solver_experiments.run(
+        device="cpu", log=lambda *a: None))
+    require(cpu_fail == [], f"[solver] CPU claims: {cpu_fail}")
+    for r, c in zip(rows, cpu_rows):
+        require((r.case, r.arm, r.converged, r.sweeps) ==
+                (c.case, c.arm, c.converged, c.sweeps),
+                f"[solver] {r.case} {r.arm}: card {r} vs CPU {c}")
+        if r.arm == "awpm":
+            require(r.k2_launches >= 1, f"[solver] {r.case}: no K2 launch")
+    kernels["awac_persistent"]["launches"] += k["awac_persistent"]
+    contrast = solver_experiments.contrast_cases(rows)
+    print(f"[solver] {len(rows)} (case, arm) rows in {t:.2f} s on the card "
+          f"({t_cpu:.2f} s on the CPU); awpm converged to <= "
+          f"{solver_experiments.MAX_RESIDUAL:g} on 9/9; unpivoted fails "
+          f"where awpm converges on {contrast}; persistent kernel launches "
+          f"{k['awac_persistent']} ({card})")
+    for r in rows:
+        print(f"[solver]   {r.case:<20} {r.arm:<9} n={r.n:<3} matching "
+              f"{r.matching_s * 1e3:8.2f} ms, LU {r.lu_s * 1e3:7.2f} ms, "
+              f"refine {r.refine_s * 1e3:8.2f} ms, {r.sweeps} sweeps, "
+              f"residual {r.residual:.3e}, K2 {r.k2_launches}")
+    log["solver"] = dict(wall_s=t, cpu_s=t_cpu, launches=k,
+                         contrast=contrast,
+                         rows=[dataclasses.asdict(r) for r in rows])
+    log["solver"]["scale"] = solver_at_scale(card, kernels)
+
+
+def solver_at_scale(card, kernels) -> dict:
+    """The awpm arm on the planted ill-conditioned system at
+    ``SOLVER_SCALE``'s order, with the device operations of one float32
+    solve through its factors: the triangular sweeps are n sequential
+    rows of about log2(n) elementwise launches each."""
+    name, _, (row, col, val, n) = solver_experiments.planted_illcond(
+        **SOLVER_SCALE)
+    b = np.random.default_rng(7).standard_normal(n)
+    rep, t, k = launched(lambda: solve_linear_system((row, col, val, n), b))
+    worst = float(rep.residual.max())
+    require(rep.ok and worst <= solver_experiments.MAX_RESIDUAL
+            and k["awac_persistent"] >= 1,
+            f"[solver] {name}: ok {rep.ok}, residual {worst}, launches {k}")
+    kernels["awac_persistent"]["launches"] += k["awac_persistent"]
+    factor = sparse_lu(CsrMatrix.from_coo(*rep.pivot.scaled_coo(row, col,
+                                                                 val), n))
+    sb = rep.pivot.scale_rhs(b)
+    _, t_once = wall(lambda: lu_solve_once(factor, sb))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lu_solve_once(factor, sb)
+        sync()
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    n_ops = sum(e.count for e in ops)
+    dev_s = sum(dev_us(e) for e in ops) / 1e6
+    cpu, t_cpu = wall(lambda: solve_linear_system((row, col, val, n), b,
+                                                  device="cpu"))
+    require(cpu.ok and np.array_equal(cpu.pivot.row_perm, rep.pivot.row_perm),
+            f"[solver] {name}: the CPU's pivots differ from the card's")
+    sp = rep.split
+    sweeps = int(np.max(rep.refinement.iterations))
+    print(f"[solver] {name} n={n} awpm: matching {sp['matching_s']:.3f} s, "
+          f"LU {sp['lu_s']:.3f} s, refine {sp['refine_s']:.3f} s, {sweeps} "
+          f"sweeps, residual {worst:.3e}, K2 {k['awac_persistent']}; one "
+          f"float32 solve through the factors {t_once:.3f} s with {n_ops} "
+          f"device operations, {dev_s:.3f} s of device time (busy "
+          f"{dev_s / t_once:.1%} of the untraced call) ({card}); on the "
+          f"CPU {t_cpu:.3f} s (matching {cpu.split['matching_s']:.3f}, LU "
+          f"{cpu.split['lu_s']:.3f}, refine {cpu.split['refine_s']:.3f} s)")
+    return dict(n=n, wall_s=t, split=sp, sweeps=sweeps, residual=worst,
+                launches=k, solve_once_s=t_once, device_ops=n_ops,
+                device_s=dev_s, cpu_s=t_cpu, cpu_split=cpu.split)
 
 
 def phase_sweep(log, kernels, single_run):
@@ -2304,7 +2626,11 @@ def main(argv=None) -> int:
     single_run = phase_single(log, kernels)
     batch_run = phase_batch(log, kernels)
     grid = phase_grid(log, kernels, single_run, batch_run)
-    phase_serve(log, kernels, grid)
+    plain_stream = phase_serve(log, kernels, grid)
+    phase_resilient(log, kernels, grid, single_run, batch_run)
+    phase_chaos(log, kernels)
+    phase_serve_resilient(log, kernels, plain_stream)
+    phase_solver(log, kernels)
     tdist.destroy_process_group()
     del batch_run
     phase_sweep(log, kernels, single_run)

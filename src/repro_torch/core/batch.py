@@ -387,6 +387,15 @@ def _cwinners_batched(backend, row, col, val, row_ptr, n, state, min_gain,
     raise ValueError(f"unknown AWAC backend {backend!r}")
 
 
+# Convergence-mask hook for a fault-injection harness
+# (``runtime.chaos``): when set, called as ``tap(active, iters) -> active``
+# after each round's convergence update. None in production. The
+# persistent kernel's loop ("cuda_persistent") runs inside the kernel and
+# the single-instance loop (``single._awac_loop``) is its own: neither
+# passes through here.
+_CONVERGENCE_TAP = None
+
+
 def awac_loop(n: int, state: MatchState, max_iter: int, cwinners_fn,
               active0=None, aux0=0):
     """Masked batched AWAC loop. ``cwinners_fn(state) -> (Cgain, Ci, Cw1,
@@ -413,6 +422,8 @@ def awac_loop(n: int, state: MatchState, max_iter: int, cwinners_fn,
                              for ns, s in zip(new_state, state)))
         iters = iters + active.to(I32)
         active = active & (n_surv > 0) & (iters < max_iter)
+        if _CONVERGENCE_TAP is not None:
+            active = _CONVERGENCE_TAP(active, iters)
         aux = aux + a
     return state, iters, aux
 

@@ -69,9 +69,11 @@ class GridSpec:
     ``row_group`` holds the ranks of this rank's grid row (a * pc + 0 ..
     pc - 1; its group rank is the grid column); ``col_group`` those of its
     grid column (0 .. pr - 1 times pc, plus b; its group rank is the grid
-    row). A pod axis folds into the grid rows. Collectives over all
-    ranks use the default group, whose size is pr * pc. Build it with
-    :func:`make_grid`."""
+    row). A pod axis folds into the grid rows. Collectives over the whole
+    grid run on ``group``: None means the default group, whose size is
+    then pr * pc; a grid over a subset of the ranks (``make_subgrid``)
+    holds the group of its own ranks. Build it with :func:`make_grid` or
+    :func:`make_subgrid`."""
 
     pr: int
     pc: int
@@ -80,6 +82,7 @@ class GridSpec:
     row_group: Any
     col_group: Any
     device: torch.device
+    group: Any = None
 
     @property
     def rank(self) -> int:
@@ -106,10 +109,7 @@ def make_grid(pr: int, pc: int, device=None) -> GridSpec:
             or int(pc) < 1:
         raise ValueError(f"bad grid shape {pr}x{pc}")
     pr, pc = int(pr), int(pc)
-    device = single.resolve_device(device)
-    want = "nccl" if device.type == "cuda" else "gloo"
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    device, want = _grid_device(device)
     if not dist.is_initialized():
         if (pr, pc) != (1, 1):
             raise ValueError(
@@ -126,22 +126,67 @@ def make_grid(pr: int, pc: int, device=None) -> GridSpec:
         raise ValueError(
             f"the default process group has {world} ranks, a {pr}x{pc} grid "
             f"needs {pr * pc}")
+    return make_subgrid(np.arange(pr * pc).reshape(pr, pc), device)
+
+
+def _grid_device(device):
+    """(the grid's device, the backend its collectives need)."""
+    device = single.resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device, "nccl" if device.type == "cuda" else "gloo"
+
+
+def _check_backend(device, want: str) -> None:
     have = str(dist.get_backend())
     if want not in have:
         raise ValueError(
             f"the default process group runs {have!r}; a grid on {device} "
             f"needs {want!r}")
-    key = (pr, pc, str(device))
+
+
+def make_subgrid(ranks, device=None) -> GridSpec | None:
+    """The grid over a rectangle of the default group's ranks:
+    ``ranks[a][b]`` is the global rank that owns block (a, b), in
+    increasing order row by row (a survivor rectangle of a ``make_grid``
+    grid keeps that order). The grid's collectives run on a group of
+    those ranks alone (``GridSpec.group``).
+
+    Every rank of the default group must call this with the same
+    arguments, in the same order, inside the rectangle or not:
+    ``dist.new_group`` builds the grid's group and its row and column
+    groups, and every rank takes part in each. Returns this rank's
+    :class:`GridSpec`, or None for a rank outside the rectangle."""
+    ranks = np.asarray(ranks, dtype=np.int64)
+    if ranks.ndim != 2 or ranks.size == 0:
+        raise ValueError(
+            f"ranks must be a non-empty [pr, pc] array, got shape "
+            f"{ranks.shape}")
+    if not dist.is_initialized():
+        raise ValueError("a subgrid needs an initialised default process "
+                         "group (torch.distributed.init_process_group)")
+    device, want = _grid_device(device)
+    _check_backend(device, want)
+    flat = ranks.reshape(-1).tolist()
+    world = dist.get_world_size()
+    if flat != sorted(set(flat)) or flat[0] < 0 or flat[-1] >= world:
+        raise ValueError(
+            f"ranks {ranks.tolist()} must be distinct ranks of the "
+            f"{world}-rank default group, increasing row by row")
+    key = ("sub", tuple(flat), ranks.shape, str(device))
     cached = _GRIDS.get(key)
     if cached is not None and cached[0] is dist.group.WORLD:
         return cached[1]
-    rank = dist.get_rank()
-    a, b = divmod(rank, pc)
-    rows = [dist.new_group([r * pc + c for c in range(pc)])
-            for r in range(pr)]
-    cols = [dist.new_group([r * pc + c for r in range(pr)])
-            for c in range(pc)]
-    spec = GridSpec(pr, pc, a, b, rows[a], cols[b], device)
+    pr, pc = ranks.shape
+    # the whole default group needs no group of its own
+    whole = None if flat == list(range(world)) else dist.new_group(flat)
+    rows = [dist.new_group(ranks[r].tolist()) for r in range(pr)]
+    cols = [dist.new_group(ranks[:, c].tolist()) for c in range(pc)]
+    spec = None
+    me = dist.get_rank()
+    if me in flat:
+        a, b = divmod(flat.index(me), pc)
+        spec = GridSpec(pr, pc, a, b, rows[a], cols[b], device, group=whole)
     _GRIDS[key] = (dist.group.WORLD, spec)
     return spec
 
@@ -399,7 +444,7 @@ def _make_awpm_dist_batched(spec: GridSpec, n: int, b: int, cap: int,
             # block: the sum over ranks adds its weight to exact zeros
             u = torch.zeros(b, n + 1, dtype=torch.float32, device=dev)
             u.scatter_(1, torch.where(gi < n, gis, n).long(), w)
-            dist.all_reduce(u)
+            dist.all_reduce(u, group=spec.group)
             u[:, n] = 0.0
             v = torch.zeros(b, n + 1, dtype=torch.float32, device=dev)
             mr = mate_row[:, :n]
@@ -430,7 +475,7 @@ def _make_awpm_dist_batched(spec: GridSpec, n: int, b: int, cap: int,
                 cnt_out, chk_out = _conserved([qi, qj, qw2], qvalid)
                 tot = torch.stack([cnt_in, chk_in, cnt_out, chk_out,
                                    d1 + d2])
-                dist.all_reduce(tot)
+                dist.all_reduce(tot, group=spec.group)
                 bad = ((tot[0] - tot[4]) != tot[2]) \
                     | ((tot[4] == 0) & (tot[1] != tot[3]))
                 aux = torch.stack([tot[4], bad.to(torch.int64)])
@@ -515,7 +560,7 @@ def _make_awpm_dist_batched(spec: GridSpec, n: int, b: int, cap: int,
         if not exchange_check:
             # the audit's pair is summed over ranks every round; the plain
             # dropped counter is summed once here
-            dist.all_reduce(aux)
+            dist.all_reduce(aux, group=spec.group)
         mark("awac_s", t)
         return state, iters, aux
 

@@ -75,6 +75,12 @@ _LIB = None
 BUILD_INFO: dict = {}
 
 
+class KernelBuildError(RuntimeError):
+    """The kernels could not be built or loaded: no ``nvcc``, a source that
+    does not compile or link, or a library that does not load. Never
+    transient: building again gives the same result."""
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -82,8 +88,9 @@ def _nvcc() -> str:
     default = pathlib.Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
-                       "CUDA toolkit's nvcc, on the machine with the card")
+    raise KernelBuildError("nvcc not found: the CUDA kernels are built with "
+                           "the CUDA toolkit's nvcc, on the machine with the "
+                           "card")
 
 
 def _digest() -> str:
@@ -116,16 +123,19 @@ def build() -> pathlib.Path:
             procs.append((name, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        logs = []
-        for name, proc in procs:
+        logs, failed = [], []
+        for name, proc in procs:  # wait for every one, failed or not
             out, _ = proc.communicate()
             logs.append(f"== {name}\n{out}")
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {name}:\n{out}")
+                failed.append(f"nvcc failed on {name}:\n{out}")
+        if failed:
+            raise KernelBuildError("\n".join(failed))
         link = subprocess.run([nvcc, "-shared", "-o", str(tmp / LIB_NAME),
                                *map(str, objs)], capture_output=True, text=True)
         if link.returncode != 0:
-            raise RuntimeError(f"linking the kernels failed:\n{link.stderr}")
+            raise KernelBuildError(
+                f"linking the kernels failed:\n{link.stderr}")
         (tmp / "ptxas.log").write_text("\n".join(logs))
         try:
             os.replace(tmp, out_dir)  # atomic; a concurrent build may win
@@ -144,11 +154,16 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built at the first call."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = RESTYPES.get(name, c_int)
+        path = build()
+        try:
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = RESTYPES.get(name, c_int)
+        except (OSError, AttributeError) as e:
+            raise KernelBuildError(
+                f"loading the kernel library {path} failed: {e}") from e
         _LIB = lib
     return _LIB
 

@@ -36,8 +36,7 @@ def main(argv=None) -> None:
     ap.add_argument("--no-warm", action="store_true",
                     help="disable warm-start rematching")
     ap.add_argument("--resilient", action="store_true",
-                    help="serve through runtime.resilient rung chains "
-                         "(not ported: raises NotImplementedError)")
+                    help="serve through runtime.resilient rung chains")
     ap.add_argument("--device", default=None,
                     help="device of the solves (default: the card)")
     args = ap.parse_args(argv)

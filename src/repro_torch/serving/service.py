@@ -269,7 +269,8 @@ class ServiceConfig:
     warm_start: bool = True
     admission: str = "sanitize"
     options: Any = None  # SolveOptions | None
-    resilient: bool = False  # runtime.resilient rung chains: not ported
+    resilient: bool = False  # serve through runtime.resilient rung chains
+    resilience: Any = None  # ResilientOptions | None (resilient=True only)
 
     def __post_init__(self):
         if self.admission not in ADMISSION:
@@ -316,6 +317,7 @@ class Response:
     completed_at: float
     solve_s: float  # measured batch solve wall time
     latency_s: float  # queueing delay + solve
+    resilience: str | None = None  # ResilienceReport.summary() if resilient
 
 
 class MatchingService:
@@ -336,11 +338,6 @@ class MatchingService:
                  clock=time.monotonic, device=None):
         self.config = config or ServiceConfig()
         cfg = self.config
-        if cfg.resilient:
-            raise NotImplementedError(
-                "ServiceConfig(resilient=True) serves through "
-                "runtime.resilient, which is not ported to torch yet "
-                "(ROADMAP.md, Queue 1, item 8)")
         self.device = _api.resolve_device(device)
         opts = cfg.options or _api.SolveOptions()
         if not isinstance(opts, _api.SolveOptions):
@@ -445,8 +442,17 @@ class MatchingService:
 
     def _matcher(self, cls: SizeClass):
         spec = _api.ProblemSpec(n=cls.n, cap=cls.cap, batch=cls.batch)
-        return self.plans.get((cls.n, cls.cap, cls.batch),
-                              lambda: _api.plan(spec, self._options))
+        if self.config.resilient:
+            from repro_torch.runtime import resilient as _resilient
+
+            def build():
+                return _resilient.ResilientMatcher(
+                    spec, self._options, self.config.resilience,
+                    device=self.device)
+        else:
+            def build():
+                return _api.plan(spec, self._options)
+        return self.plans.get((cls.n, cls.cap, cls.batch), build)
 
     def _filler(self, cls: SizeClass) -> _api.MatchingProblem:
         """The identity filler instance for ``cls`` on the host:
@@ -496,8 +502,14 @@ class MatchingService:
             seed = (mates[0], mates[1])
         matcher = self._matcher(cls)
         t0 = time.perf_counter()
-        result = matcher(batch) if seed is None \
+        served = matcher(batch) if seed is None \
             else matcher(batch, warm_start=seed)
+        resilience = None
+        if self.config.resilient:  # ResilientResult: unwrap + keep story
+            resilience = served.report.summary()
+            result = served.result
+        else:
+            result = served
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         solve_s = time.perf_counter() - t0
@@ -522,7 +534,8 @@ class MatchingService:
                 submitted_at=r.submitted_at,
                 dispatched_at=flush.dispatched_at,
                 completed_at=completed_at, solve_s=solve_s,
-                latency_s=completed_at - r.submitted_at))
+                latency_s=completed_at - r.submitted_at,
+                resilience=resilience))
 
 
 def _result_to_host(result: _api.MatchResult) -> _api.MatchResult:

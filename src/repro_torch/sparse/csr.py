@@ -1,5 +1,6 @@
-"""CSR ``row_ptr`` builders over padded lex-sorted COO edge lists, and the
-windowed-search depth they imply.
+"""CSR ``row_ptr`` builders over padded lex-sorted COO edge lists, the
+windowed-search depth they imply, and the host-side assembly of duplicate
+COO entries.
 
 The AWAC sweep turns the per-edge completion lookup into a binary search
 inside one CSR row segment; these helpers build that row index on the
@@ -9,7 +10,36 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+
+def dedupe_coo_sum(row, col, val, n_cols=None):
+    """Assemble duplicate COO entries by summation (numpy, host-side).
+
+    Returns lex-sorted (row, col, val) with one entry per (row, col) pair,
+    duplicate values summed: the Matrix Market assembly convention for
+    repeated coordinate entries (and FEM-style element assembly). Unlike
+    ``repro_torch.core.graph._dedupe`` (keep-first), no value is dropped.
+    """
+    row = np.asarray(row)
+    col = np.asarray(col)
+    val = np.asarray(val)
+    if row.size == 0:
+        return row, col, val
+    if n_cols is None:
+        n_cols = int(col.max()) + 1
+    key = row.astype(np.int64) * np.int64(n_cols) + col.astype(np.int64)
+    order = np.argsort(key, kind="stable")
+    key = key[order]
+    uniq_mask = np.empty(key.shape, bool)
+    uniq_mask[0] = True
+    np.not_equal(key[1:], key[:-1], out=uniq_mask[1:])
+    seg = np.cumsum(uniq_mask) - 1  # dense segment id per sorted entry
+    out_val = np.zeros(int(seg[-1]) + 1, dtype=np.result_type(val, np.float64))
+    np.add.at(out_val, seg, val[order])
+    first = order[uniq_mask]
+    return row[first], col[first], out_val.astype(val.dtype, copy=False)
 
 
 def row_ptr_from_sorted(row: torch.Tensor, n: int) -> torch.Tensor:

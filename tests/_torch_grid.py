@@ -129,6 +129,14 @@ def job_moe(grid, logits, k, cap):
     return [_np(x) for x in out[:3]]
 
 
+def job_chaos(grid, n=48):
+    """``runtime.chaos.run_chaos_matrix`` on the grid: its records."""
+    from repro_torch.runtime import chaos
+
+    return chaos.run_chaos_matrix(grid.pr, grid.pc, n=n, device="cpu",
+                                  log=lambda *a: None)
+
+
 def _corrupt_weight(stage, outs, valid):
     """Nudge the first valid weight of the stage-2 exchange."""
     if stage != 2:
@@ -148,7 +156,8 @@ def _drop_one(stage, outs, valid):
 
 _TAPS = {"corrupt_weight": _corrupt_weight, "drop_one": _drop_one}
 
-JOBS = {"driver": job_driver, "solve": job_solve, "moe": job_moe}
+JOBS = {"driver": job_driver, "solve": job_solve, "moe": job_moe,
+        "chaos": job_chaos}
 
 
 def same(a, b) -> bool:

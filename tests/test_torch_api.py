@@ -191,7 +191,7 @@ def test_default_device_is_the_card():
                 build()
 
 
-def test_warm_start_is_not_ported_yet():
+def test_warm_start_from_a_fixed_point_returns_it():
     """Warm start from the earlier result of the same problem returns it
     unchanged, after one AWAC round, locally and on the 1x1 grid."""
     p = _problem()

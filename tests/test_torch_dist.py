@@ -477,7 +477,7 @@ def test_matcher_denser_than_prototype_gives_replan_error():
         matcher(dense)
 
 
-def test_matcher_grid_rejects_cap_mismatch_and_warm_start():
+def test_matcher_grid_rejects_misfits_and_warm_starts_from_its_result():
     """A grid ``Matcher`` rejects a problem off its planned cap and a warm
     start that does not fit the problem; a fitting warm start from its own
     cold result returns that result after one AWAC round."""

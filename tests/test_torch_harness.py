@@ -84,6 +84,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     sources = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     sources.append(REPO / "chip_smoke.py")
     assert len(sources) > 10
+    packages = {p.relative_to(REPO / "src" / "repro_torch").parts[0]
+                for p in sources[:-1]}
+    assert {"core", "kernels", "serving", "runtime", "data",
+            "solver"} <= packages
     offenders = []
     for path in sources:
         for m in _BANNED.finditer(path.read_text()):

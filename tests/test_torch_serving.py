@@ -2,7 +2,9 @@
 package's, and the serving tier's host-side behaviour on its own.
 
 The same open-loop stream (``run_stream`` on a simulated clock, n = 48)
-drives both services, warm start on and off: every ``Response`` must be
+drives both services, warm start on and off, and through the resilience
+layer (``resilient=True``, whose ``Response.resilience`` summary must be
+JAX's with JAX's local rung "xla" named "torch"): every ``Response`` must be
 equal field by field, except the wall-clock fields (``solve_s``,
 ``completed_at``, ``latency_s``), with ``weight`` to rtol 1e-6 (a float32
 sum whose order differs between torch and XLA); ``stats()`` must be equal
@@ -59,7 +61,13 @@ STREAMS = {
                       structure_churn=0.1, seed=0)),
     "cold": (dict(warm_start=False, num_shards=2, max_batch=4),
              dict(requests=40, users=5, rate_rps=900.0, seed=3)),
+    "resilient": (dict(resilient=True, num_shards=2),
+                  dict(requests=40, users=6, rate_rps=500.0,
+                       structure_churn=0.2, seed=5)),
 }
+#: JAX's local rungs by the port's names ("auto" on the CPU: the plain
+#: torch sweep where JAX runs its fused XLA one)
+RUNGS = {"local xla": "local torch"}
 INTS = ("request_id", "shard", "ok", "served_warm", "batch_fill", "class_n",
         "class_cap", "class_batch", "awac_iters", "perfect", "warm_started")
 
@@ -76,7 +84,8 @@ def table(rs):
                      r.size_class.batch, int(res.awac_iters),
                      bool(res.perfect), res.execution.warm_started])
         floats.append([r.submitted_at, r.dispatched_at, float(res.weight)])
-        strs.append([r.key, r.lane, r.flush_reason, r.error or ""])
+        strs.append([r.key, r.lane, r.flush_reason, r.error or "",
+                     r.resilience or ""])
         mr.append(np.asarray(res.mate_row))
         mc.append(np.asarray(res.mate_col))
     return (np.array(ints, np.int64), np.array(floats, np.float64),
@@ -101,7 +110,8 @@ def _table(responses):
                      r.size_class.batch, int(res.awac_iters),
                      bool(res.perfect), res.execution.warm_started])
         floats.append([r.submitted_at, r.dispatched_at, float(res.weight)])
-        strs.append([r.key, r.lane, r.flush_reason, r.error or ""])
+        strs.append([r.key, r.lane, r.flush_reason, r.error or "",
+                     r.resilience or ""])
         mr.append(res.mate_row)
         mc.append(res.mate_col)
     return dict(ints=np.array(ints, np.int64),
@@ -123,7 +133,11 @@ def test_service_matches_jax_on_a_stream(jax_streams, name):
     summary = run_stream(svc, StreamSpec(**spec))
     got = _table(summary["responses"])
     assert len(summary["responses"]) == spec["requests"]
-    for k in ("ints", "strs", "mr", "mc"):
+    want_strs = jax_streams[f"{name}__strs"].copy()
+    for jax_rung, rung in RUNGS.items():
+        want_strs = np.char.replace(want_strs, jax_rung, rung)
+    np.testing.assert_array_equal(got["strs"], want_strs, err_msg="strs")
+    for k in ("ints", "mr", "mc"):
         np.testing.assert_array_equal(got[k], jax_streams[f"{name}__{k}"],
                                       err_msg=k)
     want = jax_streams[f"{name}__floats"]
@@ -471,8 +485,6 @@ def test_service_plan_cache_eviction_replans():
 
 
 def test_service_refusals():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        MatchingService(ServiceConfig(resilient=True), device="cpu")
     with pytest.raises(TypeError, match="SolveOptions"):
         MatchingService(ServiceConfig(options="fast"), device="cpu")
     svc = _svc()
@@ -482,6 +494,34 @@ def test_service_refusals():
         svc.submit("u", pb, now=0.0)
     with pytest.raises(TypeError, match="BipartiteGraph or MatchingProblem"):
         svc.submit("u", np.eye(3), now=0.0)
+
+
+def test_resilient_service_equals_the_plain_one():
+    from repro_torch.runtime import chaos
+    from repro_torch.runtime.resilient import ResilientOptions
+
+    spec = StreamSpec(requests=32, users=4, structure_churn=0.2, seed=2)
+    plain = _table(run_stream(MatchingService(device="cpu"), spec)
+                   ["responses"])
+    guard = ServiceConfig(resilient=True, resilience=ResilientOptions(
+        verify_convergence=True))
+    rs = run_stream(MatchingService(guard, device="cpu"), spec)["responses"]
+    got = _table(rs)
+    for k in ("ints", "mr", "mc", "floats"):
+        np.testing.assert_array_equal(got[k], plain[k], err_msg=k)
+    assert all(r.resilience == "served by local torch after 1 attempt(s)"
+               for r in rs)
+    with chaos.failing_backend("torch"):
+        rs = run_stream(MatchingService(ServiceConfig(resilient=True),
+                                        device="cpu"), spec)["responses"]
+    np.testing.assert_array_equal(_table(rs)["mr"], plain["mr"])
+    # the injection patches the cold engines (as JAX's does): a cold lane
+    # degrades to the reference rung, a warm one is served as before
+    for r in rs:
+        want = "local reference (degraded)" if r.lane == "cold" \
+            else "local torch after 1"
+        assert want in r.resilience, (r.lane, r.resilience)
+    assert {r.lane for r in rs} == {"cold", "warm"}
 
 
 def test_service_builds_on_the_card_by_default():
@@ -533,3 +573,15 @@ def test_service_on_the_card_equals_torch_backend(cuda):
         for k in ("ints", "strs", "mr", "mc", "floats"):
             np.testing.assert_array_equal(runs[bk][k], runs["torch"][k],
                                           err_msg=f"{bk}: {k}")
+
+
+@pytest.mark.gpu
+def test_resilient_service_on_the_card_names_the_persistent_kernel(cuda):
+    spec = StreamSpec(requests=48, users=6, structure_churn=0.2, seed=1)
+    plain = _table(run_stream(MatchingService(), spec)["responses"])
+    rs = run_stream(MatchingService(ServiceConfig(resilient=True)),
+                    spec)["responses"]
+    for k in ("ints", "mr", "mc", "floats"):
+        np.testing.assert_array_equal(_table(rs)[k], plain[k], err_msg=k)
+    assert all(r.resilience == "served by local cuda_persistent after 1 "
+               "attempt(s)" for r in rs)
