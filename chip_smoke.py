@@ -6,18 +6,22 @@ paths — ``solve()`` at the size a sparse direct solver hands to its
 matching step, locally and on the 1x1 grid, the matching service with
 warm-start rematching over a stream of requests, the resilience layer
 (guarded solves, the chaos matrix, a resilient service), the
-static-pivoting sparse solver, and LM serving (``serve_lm``) on
+static-pivoting sparse solver, the measured dispatch table behind
+"auto", the paper's evaluation runner, and LM serving (``serve_lm``) on
 qwen2-0.5b and on the MoE model qwen2-moe-a2.7b with the AWPM router,
-both at full width and depth — then bert4rec serving (``serve_recsys``) at its published size and the
-recsys EmbeddingBag and the dense cycle-gain tile through their public
-entries, holds each kernel against its plain torch version on the card,
-and prints what it measured:
+both at full width and depth — then bert4rec serving (``serve_recsys``)
+at its published size and the recsys EmbeddingBag and the dense
+cycle-gain tile through their public entries, and training of qwen2-0.5b
+and bert4rec — holds each kernel against its plain torch version on the
+card, and prints what it measured:
 
   1. build the kernels (``nvcc``, sm_90a); print the build time and the
      card's name and power limit;
   2. one instance, n = 1,048,576, avg_degree 16, kind "antigreedy",
      seed 0: ``solve()`` with backend "auto" (must resolve to the
-     persistent kernel), "cuda" (the sweep kernel once per round) and
+     committed dispatch table's winner, whose kernel's launches are
+     checked: the persistent kernel once, or the sweep kernel once per
+     round), "cuda" (the sweep kernel once per round) and
      "torch", with identical states and iteration counts; the greedy /
      MCM / AWAC split; the persistent kernel against its plain version,
      timed to convergence and at ``max_iter=1``, with its device time
@@ -29,6 +33,15 @@ and prints what it measured:
      the bound of each, the sweep's device time (a CUDA graph) and its
      launches' times (``torch.profiler``), the persistent kernel at
      ``max_iter=1`` and its device time;
+  3a. [dispatch] the committed dispatch table
+     (``src/repro_torch/kernels/dispatch_table.json``, written by
+     ``tools/dispatch_table.py``): "auto" must resolve to each shape
+     class's winner with source "table" (n = 128 alone and in a batch of
+     16 here, phases 2 and 3 for the large classes); single_small and
+     single_large re-timed as the tool times them (every backend, a later
+     call's median of 5) and printed beside the table's entries. The
+     launch checks of the later phases read the backend "auto" resolves
+     to there;
   3b. [grid] the distributed engine (``core.dist``) on the 1x1 grid of
      one NCCL rank: ``solve()`` of the phase-2 instance with backend
      "auto" (must resolve to "fused", the exchange engine) and "cuda" (the
@@ -86,6 +99,13 @@ and prints what it measured:
      matching, LU and refinement times; then the planted ill-conditioned
      system at n = 4,096 through the awpm arm, with the device operations
      and device time of one float32 solve through its factors;
+  3h. [paper_eval] the paper's evaluation (``repro_torch.experiments``):
+     ``DEFAULT_SPEC`` (six fixtures, ten suite matrices of n = 96) and
+     three suite matrices of n = 4,096 through "reference", "torch",
+     "cuda", "cuda_persistent", "auto" and the 1x1 NCCL grid, every row
+     certified by its dual, sound, perfect and identical to "reference";
+     the rows, the sweep and persistent kernels' launches and the worst
+     certified ratio bound;
   4. the sweep kernel alone against its plain version on a mid-AWAC state
      of the phase-2 instance, with the median time of each, its device
      time and its launches' times. In phases 3 and 4 the sweep kernel is
@@ -162,7 +182,17 @@ and prints what it measured:
      bound and its plain version, through its wrapper and through the
      router's entry (whose CUDA graph must hold K4 alone), with its device
      time from a CUDA graph of 20 launches and per launch from the prefill
-     profile.
+     profile;
+ 13. [train] qwen2-0.5b (24 layers, bf16 compute, float32 weights drawn
+     from seed 0) training on ``TokenPipeline`` batches of 4 x 2,048
+     tokens through the flash-attention kernel's autograd path: K5 once
+     per layer in a forward, and again per layer when the checkpointed
+     blocks are recomputed in backward; step 1's loss and every gradient
+     leaf against the plain attention path on the same weights and batch
+     (``TRAIN_LOSS_TOL``, ``TRAIN_GRAD_TOL``); 5 AdamW steps through
+     ``training.loop.train`` (the loss on the first batch must fall), with
+     ms per step, tokens a second, peak memory and the device's busy share
+     over one step; then bert4rec at full width, 3 steps at batch 4.
 
 Run from the root of a checkout on a machine with the card:
 
@@ -180,6 +210,7 @@ import ctypes
 import dataclasses
 import gc
 import importlib
+import importlib.util
 import json
 import pathlib
 import statistics
@@ -213,7 +244,9 @@ from repro_torch.core import (  # noqa: E402
     single,
     solve,
 )
+from repro_torch.experiments import paper_eval  # noqa: E402
 from repro_torch.kernels import backend  # noqa: E402
+from repro_torch.kernels import dispatch as kdispatch  # noqa: E402
 from repro_torch.kernels.cycle_gain.awac_sweep import (  # noqa: E402
     awac_sweep_batched,
     awac_sweep_plain,
@@ -241,6 +274,7 @@ from repro_torch.kernels.router_swap import (  # noqa: E402
     router_swap_padded_batched,
     router_swap_plain_batched,
 )
+from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.launch.serve import (  # noqa: E402
     grow_cache,
     prompt_tokens,
@@ -248,7 +282,7 @@ from repro_torch.launch.serve import (  # noqa: E402
     serve_lm,
     serve_recsys,
 )
-from repro_torch.models import build_defs  # noqa: E402
+from repro_torch.models import build_defs, build_loss  # noqa: E402
 from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.param import count_params  # noqa: E402
@@ -284,6 +318,8 @@ from repro_torch.sparse.csr import (  # noqa: E402
     batched_row_ptr_from_sorted,
     row_ptr_from_sorted,
 )
+from repro_torch.training import AdamWConfig, train  # noqa: E402
+from repro_torch.training.loop import loss_and_grads, to_device  # noqa: E402
 
 SINGLE = dict(n=1_048_576, avg_degree=16.0, kind="antigreedy", seed=0)
 BATCH = dict(b=16, n=65_536, avg_degree=8.0)
@@ -331,6 +367,19 @@ LM_LOGIT_TOL = 2e-2
 LM_F32_RATIO = 2.0
 # flash attention against its plain version (tests/test_kernels.py:71)
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+CARD = torch.device("cuda")
+# [dispatch]: the re-timed classes' later calls, as the tool takes them
+DISPATCH = dict(reps=5, limit_s=20.0)
+# [paper_eval]: suite matrices at the order [resilient] certifies at
+PAPER_EVAL = {"fixtures": False, "synthetic_count": 3, "synthetic_n": 4096}
+# [train]: qwen2-0.5b at full size, bf16 compute, the launcher's AdamW
+# settings; then bert4rec at full width
+TRAIN = dict(batch=4, seq=2048, steps=5, lr=1e-3, seed=0, rec_batch=4,
+             rec_steps=3)
+# the kernel path's step-1 loss against the plain path's, relative, and
+# each gradient leaf's max difference as a share of its largest magnitude
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_GRAD_TOL = 2e-2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
@@ -732,11 +781,10 @@ def phase_single(log, kernels):
     backend.reset_launch_counts()
     r_auto, t_auto = wall(lambda: solve(p))
     k_auto = backend.launch_counts()
-    require(r_auto.execution.backend == "cuda_persistent",
+    require(r_auto.execution.backend == auto_backend(n),
             f"auto resolved to {r_auto.execution.backend}")
-    require(r_auto.execution.ran_kernel is True, "auto ran no kernel")
-    require(k_auto["awac_persistent"] >= 1,
-            f"the persistent kernel was not launched: {k_auto}")
+    auto_launches(r_auto.execution, k_auto, int(r_auto.awac_iters),
+                  "[single] auto")
     backend.reset_launch_counts()
     r_cuda, t_cuda = wall(lambda: solve(p, SolveOptions(backend="cuda")))
     k_cuda = backend.launch_counts()
@@ -749,7 +797,8 @@ def phase_single(log, kernels):
     same_results(r_torch, r_auto, "single: torch vs auto")
     require(bool(r_auto.perfect), "single: the matching is not perfect")
     kernels["awac_persistent"]["launches"] = k_auto["awac_persistent"]
-    kernels["awac_sweep"]["launches"] = k_cuda["awac_sweep"]
+    kernels["awac_sweep"]["launches"] = k_cuda["awac_sweep"] \
+        + k_auto["awac_sweep"]
     iters = int(r_auto.awac_iters)
     print(f"[single] solve(): auto {t_auto:.2f} s, cuda {t_cuda:.2f} s, "
           f"torch {t_torch:.2f} s; {iters} AWAC rounds, weight "
@@ -821,7 +870,10 @@ def phase_batch(log, kernels):
     backend.reset_launch_counts()
     rb, t_b = wall(lambda: solve(pb))
     k_b = backend.launch_counts()
-    require(k_b["awac_persistent"] >= 1, f"batch: no kernel launch {k_b}")
+    require(rb.execution.backend == auto_backend(n, cfg["b"]),
+            f"batch: auto resolved to {rb.execution.backend}")
+    auto_launches(rb.execution, k_b, int(rb.awac_iters.max()),
+                  "[batch] auto")
     rt, t_t = wall(lambda: solve(pb, SolveOptions(backend="torch")))
     same_results(rt, rb, "batch: torch vs auto")
     for i, g in enumerate(gs):
@@ -1129,6 +1181,8 @@ def phase_serve(log, kernels, grid):
 
     # the stream, with warm start and without
     spec = StreamSpec(**SERVE_STREAM)
+    for b in (1, SERVE_CONFIG["max_batch"]):
+        expect_auto("cuda_persistent", "[serve] lanes", n=spec.n, batch=b)
     runs = {}
     for mode in ("warm", "cold"):
         svc = RecordingService(ServiceConfig(**SERVE_CONFIG,
@@ -1343,6 +1397,45 @@ def launched(fn):
     return out, t, backend.launch_counts()
 
 
+#: the launch counter of each kernel backend
+KERNEL_OF = {"cuda_persistent": "awac_persistent", "cuda": "awac_sweep"}
+
+
+def auto_backend(n=None, batch=None) -> str:
+    """The backend "auto" resolves to on the card for a problem of ``n``
+    vertices (``batch`` instances), which the committed dispatch table
+    (``kernels/dispatch_table.json``) must give."""
+    chosen, source = single.resolve_auto(CARD, n=n, batch=batch)
+    require(source == "table", f"auto on the card for n={n} batch={batch} "
+            f"is not in the dispatch table ({chosen}, {source})")
+    return chosen
+
+
+def auto_launches(ex, k, rounds: int, what: str) -> None:
+    """The launches of one ``solve()`` that ran "auto", read against the
+    backend the table resolved it to (``ex``, its ``ExecutionInfo``): the
+    persistent kernel once (one launch runs the whole loop, of every
+    lane), the sweep kernel once per AWAC round (``rounds``, the most any
+    lane ran), no kernel for "torch" or "reference"."""
+    require(ex.source == "table", f"{what}: auto resolved by {ex.source}")
+    want = {"awac_persistent": 0, "awac_sweep": 0}
+    if ex.backend in KERNEL_OF:
+        want[KERNEL_OF[ex.backend]] = 1 if ex.backend == "cuda_persistent" \
+            else rounds
+    got = {name: k[name] for name in want}
+    require(got == want, f"{what}: launches {got} for auto = {ex.backend} "
+            f"over {rounds} round(s); want {want}")
+
+
+def expect_auto(backend_name: str, what: str, n=None, batch=None) -> None:
+    """A check written for "auto" resolving to ``backend_name`` (its
+    launch counts, its rung's label): the table must say so."""
+    got = auto_backend(n, batch)
+    require(got == backend_name,
+            f"{what}: the dispatch table resolves auto (n={n}, batch="
+            f"{batch}) to {got}; this check counts {backend_name}'s launches")
+
+
 def guard_text(rr) -> str:
     """The guard's split of one served request."""
     sp = rr.report.split
@@ -1372,10 +1465,13 @@ def phase_resilient(log, kernels, grid, single_run, batch_run):
     pb, rb = batch_run
     guard = ResilientOptions(verify_convergence=True)
 
-    # the main path: "auto" starts the chain at the persistent kernel
+    # the main path: "auto" starts the chain where the table puts the
+    # single_large class (the guard resolves it with no instance in hand)
+    first = auto_backend()
     rr, t, k = launched(lambda: resilient_solve(p, resilience=guard))
-    served_first(rr, "local cuda_persistent", "[resilient] clean")
-    require(k["awac_persistent"] >= 1, f"[resilient] clean launches {k}")
+    served_first(rr, f"local {first}", "[resilient] clean")
+    if first in KERNEL_OF:
+        require(k[KERNEL_OF[first]] >= 1, f"[resilient] clean launches {k}")
     same_results(rr.result, r_local, "[resilient] clean vs solve()")
     kernels["awac_persistent"]["launches"] += k["awac_persistent"]
     fails, t_verify = wall(lambda: verify_result(p, rr.result))
@@ -1395,7 +1491,7 @@ def phase_resilient(log, kernels, grid, single_run, batch_run):
     rc, t_c, k = launched(lambda: resilient_solve(
         pc, resilience=ResilientOptions(verify_convergence=True,
                                         certify=True)))
-    served_first(rc, "local cuda_persistent", "[resilient] certify")
+    served_first(rc, f"local {first}", "[resilient] certify")
     cert = rc.report.certificate
     require(cert is not None and cert.upper_bound >= cert.weight,
             "[resilient] the certificate is missing or unsound")
@@ -1414,6 +1510,7 @@ def phase_resilient(log, kernels, grid, single_run, batch_run):
     same_results(rg.result, r_local, "[resilient] grid vs solve()")
 
     # injected failures: the persistent kernel down, then both kernels
+    expect_auto("cuda_persistent", "[resilient] injected failures")
     with failing_backend("cuda_persistent"):
         r1, t1, k = launched(lambda: resilient_solve(p, resilience=guard))
     require(r1.report.backend_used == "local cuda" and r1.report.degraded,
@@ -1437,12 +1534,12 @@ def phase_resilient(log, kernels, grid, single_run, batch_run):
     # the planned matcher)
     m = ResilientMatcher(pb, resilience=guard)
     rm, t_m1, k = launched(lambda: m(pb))
-    served_first(rm, "local cuda_persistent", "[resilient] batch")
+    served_first(rm, f"local {first}", "[resilient] batch")
     same_results(rm.result, rb, "[resilient] batch vs solve()")
     kernels["awac_persistent"]["launches"] += k["awac_persistent"]
     rm2, t_m2, k2 = launched(lambda: m(pb))
-    served_first(rm2, "local cuda_persistent", "[resilient] batch again")
-    require(k2["awac_persistent"] == 1,
+    served_first(rm2, f"local {first}", "[resilient] batch again")
+    require(k2["awac_persistent"] == 1 or first != "cuda_persistent",
             f"[resilient] batch again: launches {k2}")
     same_results(rm2.result, rb, "[resilient] batch again vs solve()")
     kernels["awac_persistent"]["launches"] += k2["awac_persistent"]
@@ -1463,9 +1560,11 @@ def phase_chaos(log, kernels):
     require(len(cases) == 28 and ("device_loss_partial", "survive")
             not in cases, f"[chaos] {len(cases)} cases")
     detail = {f"{r['fault']} {r['mode']}": r["detail"] for r in records}
-    require("local cuda_persistent" in detail["drop@stage1 survive"],
+    first = auto_backend()
+    require(f"local {first}" in detail["drop@stage1 survive"],
             f"[chaos] {detail['drop@stage1 survive']}")
-    require(k["awac_sweep"] >= 1 and k["awac_persistent"] >= 1,
+    require(k["awac_sweep"] >= 1 and k[KERNEL_OF.get(first,
+                                                     "awac_sweep")] >= 1,
             f"[chaos] launches {k}: the detect case must run the sweep "
             f"kernel, the survive cases the persistent one")
     kernels["awac_sweep"]["launches"] += k["awac_sweep"]
@@ -1483,6 +1582,7 @@ def phase_serve_resilient(log, kernels, plain):
     service's, served by the persistent kernel's rung."""
     card = log["card"]
     spec = StreamSpec(**SERVE_STREAM)
+    expect_auto("cuda_persistent", "[serve] resilient")
     svc = MatchingService(ServiceConfig(**SERVE_CONFIG, resilient=True))
     summary, t, k = launched(lambda: run_stream(svc, spec))
     rs, ps = summary["responses"], plain["responses"]
@@ -1526,6 +1626,8 @@ def phase_solver(log, kernels):
     matching and the sweeps on the card; the two absolute claims; the
     same run on the CPU."""
     card = log["card"]
+    for n in (8, SOLVER_SCALE["n"]):  # the fixtures' orders, and at scale
+        expect_auto("cuda_persistent", "[solver] awpm rows", n=n)
     (rows, failures), t, k = launched(lambda: solver_experiments.run(
         log=lambda *a: None))
     require(failures == [], f"[solver] claims: {failures}")
@@ -2580,6 +2682,227 @@ def phase_router_swap(log, kernels, inputs):
                               profile_ms_per_launch=per_launch)
 
 
+def dispatch_tool():
+    """``tools/dispatch_table.py`` of this checkout, as a module: the
+    measurement that wrote the committed table."""
+    spec = importlib.util.spec_from_file_location(
+        "dispatch_table", ROOT / "tools" / "dispatch_table.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_dispatch(log, single_run, batch_run):
+    """[dispatch] The committed dispatch table: "auto" resolves to each
+    shape class's winner with source "table" (phases 2 and 3 are the
+    large classes), and one class on each side of ``SMALL_N`` re-timed
+    here as the table was measured, printed beside its entries."""
+    card = log["card"]
+    table = kdispatch.load_table()
+    require(table is not None, f"[dispatch] no table at "
+            f"{kdispatch.table_path()}")
+    entries, meta = table["entries"], table["metadata"]
+    print(f"[dispatch] {kdispatch.table_path()}: measured "
+          f"on {meta.get('card')} (torch {meta.get('torch')}, CUDA "
+          f"{meta.get('cuda')}); host {meta.get('host_cpu')}")
+    for key, e in sorted(entries.items()):
+        us = e["us_per_iter"]
+        print(f"[dispatch]   {key:<20} winner {e['winner']:<16} us/round "
+              + ", ".join(f"{b} {us[b]:.1f}" for b in us)
+              + (f"; cut {e['cut']}" if "cut" in e else ""))
+    # "auto" on a problem of each class
+    gen = [graph.generate(128, avg_degree=8.0,
+                          kind=graph.SUITE_KINDS[i % len(graph.SUITE_KINDS)],
+                          seed=i) for i in range(BATCH["b"])]
+    runs = {"single_small": solve(MatchingProblem.from_graph(gen[0])),
+            "single_large": single_run[6],
+            "batched_small": solve(MatchingProblem.stack(gen)),
+            "batched_large": batch_run[1]}
+    for klass, r in runs.items():
+        want = entries[f"{CARD.type}/{klass}"]["winner"]
+        require((r.execution.backend, r.execution.source) == (want, "table"),
+                f"[dispatch] {klass}: auto ran {r.execution.backend} "
+                f"({r.execution.source}), the table's winner is {want}")
+    print(f"[dispatch] auto resolved to each class's winner, source "
+          f"\"table\": " + ", ".join(f"{k} {r.execution.backend}"
+                                     for k, r in runs.items()))
+    # one class on each side of SMALL_N, timed as the tool times them
+    tool = dispatch_tool()
+    sizes = {k: tuple(v)
+             for k, v in meta["runs"][CARD.type]["sizes"].items()}
+    out = log["dispatch"] = {}
+    for klass in ("single_small", "single_large"):
+        cell = tool.measure_class(klass, sizes, CARD,
+                                  DISPATCH["reps"], DISPATCH["limit_s"],
+                                  log=lambda *a: None)
+        e = entries[f"{CARD.type}/{klass}"]
+        print(f"[dispatch] {klass} ({cell['workload']}) re-timed, ms a later "
+              f"call now / in the table: " + ", ".join(
+                  f"{b} {cell['ms'][b]:.3f} / {e['ms'][b]:.3f}"
+                  for b in cell["ms"])
+              + f"; winner now {cell['winner']}, table {e['winner']} "
+              f"({card})")
+        out[klass] = cell
+
+
+def phase_paper_eval(log, kernels):
+    """[paper_eval] The paper's evaluation (``repro_torch.experiments``)
+    on the card: ``DEFAULT_SPEC`` (six fixtures and ten suite matrices of
+    n = 96) and three suite matrices of n = 4,096, through the four local
+    backends, "auto" and the 1x1 NCCL grid; every row certified, sound,
+    perfect and identical to "reference" (``run_eval`` raises
+    otherwise)."""
+    card = log["card"]
+    (small, t, k) = launched(lambda: paper_eval.run_eval(
+        paper_eval.DEFAULT_SPEC))
+    (large, t_l, k_l) = launched(lambda: paper_eval.run_eval(PAPER_EVAL))
+    rows = small + large
+    engines = set(paper_eval.DEFAULT_BACKENDS) | {"grid1x1"}
+    require({r.engine for r in rows} == engines,
+            f"[paper_eval] engines {sorted({r.engine for r in rows})}")
+    for r in rows:
+        require(r.perfect and r.certified_sound and r.identical_to_reference
+                and torch.device(r.device).type == CARD.type,
+                f"[paper_eval] {r.name} [{r.engine}] {r}")
+        if r.engine == "auto":
+            require((r.backend, r.dispatch) == (auto_backend(r.n), "table"),
+                    f"[paper_eval] {r.name}: auto ran {r.backend} "
+                    f"({r.dispatch})")
+    launches = {name: k[name] + k_l[name]
+                for name in ("awac_sweep", "awac_persistent")}
+    require(launches["awac_sweep"] >= 1 and launches["awac_persistent"] >= 1,
+            f"[paper_eval] launches {launches}")
+    kernels["awac_sweep"]["launches"] += launches["awac_sweep"]
+    kernels["awac_persistent"]["launches"] += launches["awac_persistent"]
+    print(paper_eval.to_markdown(rows))
+    bounds = [r.ratio_bound for r in rows if r.ratio_bound is not None]
+    worst = min(bounds)
+    worst_row = next(r for r in rows if r.ratio_bound == worst)
+    n_tight = sum(r.tight for r in rows)
+    print(f"[paper_eval] {len(rows)} rows ({len(small)} in {t:.1f} s, "
+          f"{len(large)} at n = {PAPER_EVAL['synthetic_n']} in {t_l:.1f} s): "
+          f"all sound, perfect and identical to reference; {n_tight} "
+          f"certified optimal; worst certified ratio bound {worst:.4f} "
+          f"({worst_row.name}); K1 launches {launches['awac_sweep']}, K2 "
+          f"{launches['awac_persistent']} ({card})")
+    log["paper_eval"] = dict(wall_s=[t, t_l], launches=launches,
+                             worst_ratio_bound=worst,
+                             records=[dataclasses.asdict(r) for r in rows])
+
+
+def grad_margin(got: dict, want: dict) -> tuple[float, str]:
+    """The worst leaf's max |got - want| over its largest |want|."""
+    worst, at = 0.0, ""
+    for name, w in want.items():
+        err = float((got[name] - w).abs().max()) / max(
+            float(w.abs().max()), 1e-30)
+        if err > worst:
+            worst, at = err, name
+    return worst, at
+
+
+def phase_train(log, kernels):
+    """[train] qwen2-0.5b at full width and depth, bf16 compute, the
+    flash-attention kernel under autograd (``training``), then bert4rec at
+    full width; see the module docstring, 13."""
+    card = log["card"]
+    out = log["train"] = {}
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), dtype="bfloat16",
+                              attention_impl="cuda")
+    tr = TRAIN
+    model = build_defs(cfg, seed=tr["seed"])
+    data = train_launch._data_fn(cfg, tr["batch"], tr["seq"])
+    batch0 = to_device(data(0), CARD)
+    loss_fn = build_loss(cfg)
+    # K5 in the forward alone, then in a whole step (remat recomputes
+    # every block in backward)
+    backend.reset_launch_counts()
+    with torch.no_grad():
+        loss_fn(model, batch0)
+    sync()
+    fwd = backend.launch_counts()["flash_attention"]
+    require(fwd == cfg.n_layers, f"[train] K5 launches per forward {fwd}")
+    # step 1's loss and gradients, kernel path against plain path
+    backend.reset_launch_counts()
+    (lk, _, gk), t_k = wall(lambda: loss_and_grads(loss_fn, model, batch0))
+    per_step = backend.launch_counts()["flash_attention"]
+    plain = dataclasses.replace(cfg, attention_impl="torch")
+    (lp, _, gp), t_p = wall(lambda: loss_and_grads(build_loss(plain), model,
+                                                   batch0))
+    rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    worst, at = grad_margin(gk, gp)
+    del gk, gp
+    free_card()
+    require(rel <= TRAIN_LOSS_TOL, f"[train] step-1 loss {float(lk)!r} vs "
+            f"plain {float(lp)!r}: {rel:.3g} relative")
+    require(worst <= TRAIN_GRAD_TOL, f"[train] gradient {at}: {worst:.3g} "
+            f"of its largest magnitude")
+    print(f"[train] qwen2-0.5b bf16 B={tr['batch']} S={tr['seq']}: K5 "
+          f"launches {fwd} per forward, {per_step} per step (remat "
+          f"recomputes each block); step 1 loss {float(lk)!r} kernel path, "
+          f"{float(lp)!r} plain ({rel:.3g} relative, bar {TRAIN_LOSS_TOL}); "
+          f"worst gradient leaf {at} at {worst:.3g} of its largest magnitude "
+          f"(bar {TRAIN_GRAD_TOL}); forward+backward {t_k:.3f} s kernel "
+          f"path, {t_p:.3f} s plain ({card})")
+    # the main path: 5 AdamW steps through training.loop.train
+    opt = AdamWConfig(lr=tr["lr"], warmup_steps=max(tr["steps"] // 10, 1),
+                      total_steps=tr["steps"])
+    torch.cuda.reset_peak_memory_stats()
+    backend.reset_launch_counts()
+    (_, _, hist), t_all = wall(lambda: train(model, loss_fn, data, opt,
+                                             n_steps=tr["steps"],
+                                             log_every=1))
+    k5 = backend.launch_counts()["flash_attention"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require(k5 == tr["steps"] * per_step, f"[train] K5 launches {k5}")
+    kernels["flash_attention"]["launches"] += k5
+    with torch.no_grad():
+        after = float(loss_fn(model, batch0)[0])
+    losses = [h["loss"] for h in hist]
+    require(after < losses[0] and all(np.isfinite(losses)),
+            f"[train] loss {losses} then {after} on batch 0")
+    step_s = statistics.median(h["dt"] for h in hist[1:])
+    tokens = tr["batch"] * tr["seq"]
+    prof = profiled(lambda: train(model, loss_fn, data, opt,
+                                  n_steps=tr["steps"] + 1, log_every=100,
+                                  start_step=tr["steps"]),
+                    "one qwen2-0.5b train step", watch=("flash", "gemm"))
+    print(f"[train] 5 AdamW steps in {t_all:.2f} s: losses {losses}, then "
+          f"{after!r} on batch 0 (step 0's {losses[0]!r}); {step_s * 1e3:.1f} "
+          f"ms per later step (first {hist[0]['dt'] * 1e3:.1f} ms), "
+          f"{tokens / step_s:.0f} tokens/s; peak memory {peak:.2f} GiB; K5 "
+          f"launches {k5}; device busy "
+          f"{100 * prof['device_busy_s'] / prof['wall_s']:.1f}% of a step "
+          f"({card})")
+    out["qwen2"] = dict(fwd_k5=fwd, step_k5=per_step, loss_kernel=float(lk),
+                        loss_plain=float(lp), loss_rel=rel, grad_worst=worst,
+                        grad_worst_leaf=at, fwd_bwd_s=dict(kernel=t_k,
+                                                           plain=t_p),
+                        losses=losses, loss_after=after, step_s=step_s,
+                        first_step_s=hist[0]["dt"], tokens_per_s=tokens
+                        / step_s, peak_gib=peak, k5=k5, profile=prof)
+    del model, batch0
+    free_card()
+    # bert4rec at full width
+    rcfg = get_config("bert4rec")
+    rec = build_defs(rcfg, seed=tr["seed"])
+    rdata = train_launch._data_fn(rcfg, tr["rec_batch"], rcfg.seq_len)
+    (_, _, rh), t_r = wall(lambda: train(
+        rec, build_loss(rcfg), rdata, opt, n_steps=tr["rec_steps"],
+        log_every=1))
+    rl = [h["loss"] for h in rh]
+    require(all(np.isfinite(rl)), f"[train] bert4rec losses {rl}")
+    r_step = statistics.median(h["dt"] for h in rh[1:])
+    print(f"[train] bert4rec B={tr['rec_batch']} S={rcfg.seq_len} "
+          f"({count_params(rec) / 1e6:.1f}M params): {tr['rec_steps']} "
+          f"steps in {t_r:.2f} s, losses {rl}; {r_step * 1e3:.1f} ms per "
+          f"later step (first {rh[0]['dt'] * 1e3:.1f} ms) ({card})")
+    out["bert4rec"] = dict(losses=rl, step_s=r_step,
+                           first_step_s=rh[0]["dt"])
+    del rec
+    free_card()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=None,
@@ -2625,12 +2948,14 @@ def main(argv=None) -> int:
     phase_build(log)
     single_run = phase_single(log, kernels)
     batch_run = phase_batch(log, kernels)
+    phase_dispatch(log, single_run, batch_run)
     grid = phase_grid(log, kernels, single_run, batch_run)
     plain_stream = phase_serve(log, kernels, grid)
     phase_resilient(log, kernels, grid, single_run, batch_run)
     phase_chaos(log, kernels)
     phase_serve_resilient(log, kernels, plain_stream)
     phase_solver(log, kernels)
+    phase_paper_eval(log, kernels)
     tdist.destroy_process_group()
     del batch_run
     phase_sweep(log, kernels, single_run)
@@ -2647,6 +2972,9 @@ def main(argv=None) -> int:
     phase_cycle_gain(log, kernels)
     swap_inputs = phase_moe(log, kernels)  # frees the card first: 57 GB
     phase_router_swap(log, kernels, swap_inputs)
+    del swap_inputs
+    free_card()
+    phase_train(log, kernels)
     log["total_s"] = time.perf_counter() - t0
     print(f"[done] {log['total_s']:.1f} s; card {log['card']}")
     if args.out is not None:

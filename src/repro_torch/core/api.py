@@ -46,9 +46,10 @@ from repro_torch.sparse.csr import (
 )
 from repro_torch.sparse.partition import plan_block_cap
 
-#: every backend ``SolveOptions`` accepts. "auto" runs the persistent CUDA
-#: kernel for a problem on the card and the plain torch sweep on the CPU;
-#: on a grid it means "fused", the distributed exchange engine (grid only).
+#: every backend ``SolveOptions`` accepts. "auto" runs the measured
+#: dispatch table's winner for the problem's device and shape class
+#: (``core.single.resolve_auto``); on a grid it means "fused", the
+#: distributed exchange engine (grid only).
 #: "cuda" launches the sweep kernel once per round. The two kernel
 #: backends run their kernels' plain versions on a CPU problem;
 #: "cuda_persistent" is local only, and "torch"/"cuda" with a grid need
@@ -342,8 +343,11 @@ class ExecutionInfo:
     """How a solve actually executed.
 
     ``backend``: the concrete engine that ran (never "auto").
-    ``source``: "explicit" (user-pinned), "default" ("auto" resolved by
-    the problem's device; the port has no measured dispatch table yet) or
+    ``source``: how the backend was chosen: "explicit" (user-pinned),
+    "table" ("auto" resolved by the measured dispatch table,
+    ``kernels.dispatch``, for the problem's device type and shape class),
+    "heuristic" ("auto" where the table has no entry: the persistent
+    kernel on the card, the plain torch sweep on the CPU) or
     "grid-default" ("auto" on a grid: the fused exchange engine).
     ``device``: the device the problem was solved on.
     ``ran_kernel``: for the kernel backends, True when a hand-written CUDA
@@ -528,7 +532,11 @@ def solve(problem: MatchingProblem, options: SolveOptions | None = None, *,
         result = _solve_dist(problem, options, warm=warm)
         return _finish(problem, result, options, report)
     before = sum(launch_counts().values())
-    backend = _single.resolve_backend(options.backend, problem.device)
+    if options.backend == "auto":
+        backend, source = _single.resolve_auto(
+            problem.device, n=problem.n, batch=problem.batch_size)
+    else:
+        backend, source = options.backend, "explicit"
     kw = dict(max_iter=options.max_iter, min_gain=options.min_gain,
               backend=backend, window_steps=options.window_steps,
               degrade_infeasible=True)
@@ -547,7 +555,6 @@ def solve(problem: MatchingProblem, options: SolveOptions | None = None, *,
             state = MatchState(*(x[0] for x in state))
             iters = iters[0]
     result = _result(state, iters, problem.n, batched=problem.is_batched)
-    source = "explicit" if options.backend != "auto" else "default"
     result = dataclasses.replace(
         result, execution=_execution(problem, backend, source, before,
                                      warm is not None))

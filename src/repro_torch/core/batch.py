@@ -444,7 +444,8 @@ def awac_batched(row, col, val, n: int, state: MatchState,
 
     Same backend contract as ``single.awac``; every instance's result and
     iteration count are bit-identical to its own single-instance run."""
-    backend = single.resolve_backend(backend, row.device)
+    backend = single.resolve_backend(backend, row.device, n=n,
+                                     batch=row.shape[0])
     window_steps = _resolve_window_steps_batched(row, n, window_steps)
     if row_ptr is None:
         row_ptr = batched_row_ptr_from_sorted(row, n)

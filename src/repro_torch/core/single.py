@@ -25,6 +25,7 @@ import torch
 from repro_torch.core.constants import MIN_GAIN
 from repro_torch.kernels.cycle_gain.awac_sweep import SweepScratch
 from repro_torch.kernels.cycle_gain.ops import awac_persistent_loop, awac_sweep_winners
+from repro_torch.kernels.dispatch import choose_backend
 from repro_torch.sparse.csr import max_row_nnz, row_ptr_from_sorted, window_depth
 from repro_torch.sparse.ops import (
     NEG,
@@ -393,15 +394,31 @@ def _cwinners(backend, row, col, val, row_ptr, n, state, min_gain,
     raise ValueError(f"unknown AWAC backend {backend!r}")
 
 
-def resolve_backend(backend: str, device) -> str:
-    """Resolve ``"auto"``: the persistent CUDA kernel for a problem on the
-    card, the plain torch sweep on the CPU. No measured dispatch table
-    exists for the port yet."""
+def resolve_auto(device, n: int | None = None,
+                 batch: int | None = None) -> tuple[str, str]:
+    """Where "auto" goes for a problem of ``n`` vertices (a batch of
+    ``batch`` instances) on ``device``, and why: (backend, "table") when
+    the measured dispatch table (``kernels.dispatch``) has a winner for
+    the device type and shape class, else (backend, "heuristic"): the
+    persistent CUDA kernel on the card, the plain torch sweep on the CPU,
+    a rule no measurement backs."""
+    platform = torch.device(device).type
+    winner = choose_backend(n=n, batch=batch, platform=platform)
+    if winner is not None:
+        return winner, "table"
+    return ("cuda_persistent" if platform == "cuda" else "torch"), \
+        "heuristic"
+
+
+def resolve_backend(backend: str, device, n: int | None = None,
+                    batch: int | None = None) -> str:
+    """Resolve ``"auto"`` to a concrete local AWAC backend
+    (:func:`resolve_auto`); any other name passes through, checked."""
     if backend != "auto":
         if backend not in LOCAL_BACKENDS:
             raise ValueError(f"unknown AWAC backend {backend!r}")
         return backend
-    return "cuda_persistent" if torch.device(device).type == "cuda" else "torch"
+    return resolve_auto(device, n=n, batch=batch)[0]
 
 
 def _resolve_window_steps(row, n: int, window_steps) -> int:
@@ -451,7 +468,7 @@ def awac(row, col, val, n: int, state: MatchState, max_iter: int = 1000,
     tensor the two kernel backends run their kernels' plain versions. All
     backends produce identical states and iteration counts.
     """
-    backend = resolve_backend(backend, row.device)
+    backend = resolve_backend(backend, row.device, n=n)
     window_steps = _resolve_window_steps(row, n, window_steps)
     if row_ptr is None:
         row_ptr = row_ptr_from_sorted(row, n)

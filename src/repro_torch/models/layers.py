@@ -18,7 +18,8 @@ package's dtype rules:
 Weights are float32 parameters, cast at each use as in the JAX package.
 A dense product is a plain matrix product outside any kernel and goes to
 ``torch.nn.functional.linear``; ``Dense`` keeps ``nn.Linear``'s layout,
-``weight`` [out, in]. ``softmax_xent`` comes with the training slice.
+``weight`` [out, in]. ``softmax_xent`` is the training loss: JAX's
+masked mean cross-entropy, in float32.
 """
 from __future__ import annotations
 
@@ -129,3 +130,17 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean cross-entropy over valid positions, in float32. logits [..., V],
+    labels [...] integer, mask [...] (1 where a position counts)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)

@@ -22,8 +22,9 @@ and dtypes:
   - ``retrieval_scores``: the last position against a candidate set,
     ``hidden @ items[candidates].T + out_bias[candidates]``, [B, Nc].
 
-The masked-item loss (``loss_fn``) comes with training (ROADMAP.md, Queue
-1, item 12c). The JAX package pins activation shardings (``constrain``);
+The serving entries run under ``torch.no_grad``; the masked-item (Cloze)
+loss ``loss_fn`` runs the same trunk (``_encode``, ``_logits``) with
+gradients. The JAX package pins activation shardings (``constrain``);
 that has no role on one device and is not ported.
 """
 from __future__ import annotations
@@ -32,7 +33,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.single import resolve_device
-from repro_torch.models.layers import Dense, GeluMLP, LayerNorm
+from repro_torch.models.layers import Dense, GeluMLP, LayerNorm, softmax_xent
 from repro_torch.models.param import embed_init, generator
 from repro_torch.models.recsys.embedding import lookup, table
 
@@ -79,9 +80,7 @@ class Bert4Rec(nn.Module):
         self.out_bias = nn.Parameter(torch.zeros(cfg.padded_items,
                                                  device=device))
 
-    @torch.no_grad()
-    def encode(self, item_seq):
-        """item_seq [B, S] integer -> hidden [B, S, d]."""
+    def _encode(self, item_seq):
         x = lookup(self.items, item_seq)
         x = x + self.pos[None, : x.shape[1]]
         for bp in self.blocks:
@@ -89,10 +88,18 @@ class Bert4Rec(nn.Module):
             x = x + bp.ffn(bp.ln2(x))
         return self.final_ln(x)
 
+    def _logits(self, hidden):
+        return hidden.float() @ self.items.float().T + self.out_bias
+
+    @torch.no_grad()
+    def encode(self, item_seq):
+        """item_seq [B, S] integer -> hidden [B, S, d]."""
+        return self._encode(item_seq)
+
     @torch.no_grad()
     def logits_all_items(self, hidden):
         """Tied-embedding scores over the whole item table, float32."""
-        return hidden.float() @ self.items.float().T + self.out_bias
+        return self._logits(hidden)
 
     @torch.no_grad()
     def serve_scores(self, item_seq):
@@ -107,3 +114,12 @@ class Bert4Rec(nn.Module):
         h = self.encode(item_seq)[:, -1]  # [B, d]
         cand = lookup(self.items, candidates)  # [Nc, d]
         return h.float() @ cand.float().T + self.out_bias[candidates]
+
+
+def loss_fn(params: Bert4Rec, batch, cfg):
+    """The masked-item (Cloze) objective: (xent, {"xent"}). ``batch`` holds
+    ``item_seq``, ``labels`` and ``mask`` [B, S] (1 at masked positions),
+    as tensors on the model's device."""
+    h = params._encode(batch["item_seq"])
+    loss = softmax_xent(params._logits(h), batch["labels"], batch["mask"])
+    return loss, {"xent": loss}

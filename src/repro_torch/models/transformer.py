@@ -1,21 +1,26 @@
 """Decoder-only LM (Qwen2 and DeepSeek families): GQA + RoPE + SwiGLU,
-with MoE layers, and the entry points ``forward``, ``prefill`` and
-``decode_step`` (the port of the JAX package's ``models/transformer.py``).
+with MoE layers, the serving entry points ``forward``, ``prefill`` and
+``decode_step``, and the training loss ``loss_fn`` (the port of the JAX
+package's ``models/transformer.py``).
 
 The JAX package stacks each parameter along a leading layer axis and runs
-the layers under ``lax.scan`` with ``jax.checkpoint`` (``remat``), and
-pins activation shardings with ``constrain`` (``act_sharding.py``). Those
-are compilation and sharding devices with no role on one eager device, so
-they are not ported: here the layers are ``ModuleList``s run by a Python
-loop. The layer groups and the cache keys are JAX's: a dense model has
-``blocks``; an MoE model has ``dense_blocks`` (its ``first_dense``
-leading dense layers, if any) and ``moe_blocks``. Each cache group keeps
-the JAX layout, (k, v) each [L, B, S, Hkv, D].
+the layers under ``lax.scan``, and pins activation shardings with
+``constrain`` (``act_sharding.py``). Those are compilation and sharding
+devices with no role on one eager device, so they are not ported: here
+the layers are ``ModuleList``s run by a Python loop. Its ``jax.checkpoint``
+of each layer (``cfg.remat``) is ``torch.utils.checkpoint`` of each block
+in the loss, which recomputes the block in backward; the serving entries
+run under ``torch.no_grad`` and keep nothing to recompute. The layer
+groups and the cache keys are JAX's: a dense model has ``blocks``; an MoE
+model has ``dense_blocks`` (its ``first_dense`` leading dense layers, if
+any) and ``moe_blocks``. Each cache group keeps the JAX layout, (k, v)
+each [L, B, S, Hkv, D].
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.single import resolve_device
 from repro_torch.models.attention import (
@@ -23,7 +28,7 @@ from repro_torch.models.attention import (
     decode_attention,
     self_attention,
 )
-from repro_torch.models.layers import MLP, Dense, RMSNorm, rmsnorm
+from repro_torch.models.layers import MLP, Dense, RMSNorm, rmsnorm, softmax_xent
 from repro_torch.models.moe import MoE, moe_apply
 from repro_torch.models.param import embed_init, generator
 
@@ -101,9 +106,30 @@ def _ffn(bp: Block, x, cfg):
     return bp.ffn(x), None
 
 
-def _trunk(params: LM, tokens, cfg, collect_cache: bool):
+def _block(bp: Block, x, positions, cfg):
+    """One block: (x after it, its aux loss or None, its (k, v))."""
+    h, kv = self_attention(bp.attn, bp.ln1(x), positions, cfg)
+    x = x + h
+    f, a = _ffn(bp, bp.ln2(x), cfg)
+    return x + f, a, kv
+
+
+def _block_remat(bp: Block, x, positions, cfg):
+    """One block under ``torch.utils.checkpoint``: its activations are
+    dropped after the forward and recomputed in backward. Returns (x after
+    it, its aux loss or None)."""
+    def run(x):
+        y, a, _ = _block(bp, x, positions, cfg)
+        return y, (torch.zeros((), device=x.device) if a is None else a)
+
+    y, a = checkpoint(run, x, use_reentrant=False)
+    return y, (a if bp.moe_layer else None)
+
+
+def _trunk(params: LM, tokens, cfg, collect_cache: bool,
+           remat: bool = False):
     """Embedding and blocks: (hidden [B, S, d], summed aux loss, cache or
-    None)."""
+    None). ``remat`` checkpoints each block (training)."""
     dtype = getattr(torch, cfg.dtype)
     b, s = tokens.shape
     x = params.embed[tokens].to(dtype)
@@ -115,10 +141,10 @@ def _trunk(params: LM, tokens, cfg, collect_cache: bool):
         group_aux = torch.zeros((), device=x.device)
         ks, vs = [], []
         for bp in blocks:
-            h, (k, v) = self_attention(bp.attn, bp.ln1(x), positions, cfg)
-            x = x + h
-            f, a = _ffn(bp, bp.ln2(x), cfg)
-            x = x + f
+            if remat:
+                x, a = _block_remat(bp, x, positions, cfg)
+            else:
+                x, a, (k, v) = _block(bp, x, positions, cfg)
             if a is not None:
                 group_aux = group_aux + a
             if collect_cache:
@@ -137,6 +163,57 @@ def forward(params: LM, tokens, cfg, collect_cache: bool = False):
     model and for the AWPM router)."""
     x, aux, cache = _trunk(params, tokens, cfg, collect_cache)
     return _head(params, x, cfg), aux, cache
+
+
+def loss_fn(params: LM, batch, cfg):
+    """The training loss: (xent + aux, {"xent", "aux"}). ``batch`` holds
+    ``tokens`` and ``labels`` [B, S] and optionally ``mask`` [B, S], as
+    tensors on the model's device. Runs with gradients; ``cfg.remat``
+    checkpoints each block and ``cfg.loss_chunks > 1`` takes the
+    sequence-chunked cross-entropy."""
+    if cfg.loss_chunks > 1:
+        return _chunked_loss_fn(params, batch, cfg)
+    x, aux, _ = _trunk(params, batch["tokens"], cfg, False, remat=cfg.remat)
+    loss = softmax_xent(_head(params, x, cfg), batch["labels"],
+                        batch.get("mask"))
+    return loss + aux, {"xent": loss, "aux": aux}
+
+
+def _chunked_loss_fn(params: LM, batch, cfg):
+    """Sequence-chunked cross-entropy: the full [B, S, V] float32 logits
+    are never held. Each of ``cfg.loss_chunks`` S-chunks computes its
+    logits and reduces them to (nll sum, count) under
+    ``torch.utils.checkpoint``, so backward recomputes that chunk's logits
+    alone, as JAX's ``jax.checkpoint`` chunk does."""
+    x, aux, _ = _trunk(params, batch["tokens"], cfg, False, remat=cfg.remat)
+    hidden = rmsnorm(params.final_norm.scale, x)
+    b, s, _ = hidden.shape
+    nc = cfg.loss_chunks
+    assert s % nc == 0, (s, nc)
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones((b, s), device=hidden.device)
+
+    def chunk(h, lab, msk):
+        if cfg.tie_embeddings:
+            logits = h.float() @ params.embed.float().T
+        else:
+            logits = params.lm_head(h).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, lab.long()[..., None])[..., 0]
+        msk = msk.float()
+        return ((lse - ll) * msk).sum(), msk.sum()
+
+    tot = torch.zeros((), device=hidden.device)
+    cnt = torch.zeros((), device=hidden.device)
+    w = s // nc
+    for i in range(nc):
+        sl = slice(i * w, (i + 1) * w)
+        t, c = checkpoint(chunk, hidden[:, sl], batch["labels"][:, sl],
+                          mask[:, sl], use_reentrant=False)
+        tot, cnt = tot + t, cnt + c
+    loss = tot / cnt.clamp_min(1.0)
+    return loss + aux, {"xent": loss, "aux": aux}
 
 
 @torch.no_grad()

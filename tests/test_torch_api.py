@@ -32,6 +32,7 @@ from repro_torch.core.convert import (  # noqa: E402
     result_to_numpy,
     state_from_numpy,
 )
+from repro_torch.kernels import dispatch as kdispatch  # noqa: E402
 from test_torch_harness import run_reference  # noqa: E402
 
 FIELDS = ("mate_row", "mate_col", "weight", "awac_iters", "perfect")
@@ -162,8 +163,14 @@ def test_cpu_device_handling():
     p = _problem()
     assert p.device.type == "cpu" and p.row.dtype == torch.int32
     r = solve(p)
-    assert r.execution.backend == "torch" and r.execution.source == "default"
-    assert r.execution.device == "cpu" and r.execution.ran_kernel is None
+    # "auto" follows the committed dispatch table's CPU entry for the
+    # single_small class, and the heuristic ("torch") without one
+    winner = kdispatch.choose_backend(n=p.n, platform="cpu")
+    assert (r.execution.backend, r.execution.source) == (
+        (winner, "table") if winner is not None else ("torch", "heuristic"))
+    kernel = r.execution.backend in ("cuda", "cuda_persistent")
+    assert r.execution.device == "cpu"
+    assert r.execution.ran_kernel is (False if kernel else None)
     assert r.mate_row.device.type == "cpu" and r.mate_row.shape == (61,)
     r = solve(p, SolveOptions(backend="cuda_persistent"))
     assert r.execution.ran_kernel is False  # the plain version ran

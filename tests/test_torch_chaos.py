@@ -45,7 +45,19 @@ from repro_torch.runtime.resilient import (  # noqa: E402
     VerificationError,
     resilient_solve,
 )
-from test_torch_harness import run_reference  # noqa: E402
+from test_torch_harness import (  # noqa: E402
+    run_reference,
+    same_dispatch_as_jax,
+)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _same_dispatch_as_jax(tmp_path_factory):
+    """"auto" resolves from the counterpart of JAX's committed dispatch
+    table, so the chain starts where JAX's does (``same_dispatch_as_jax``)."""
+    with same_dispatch_as_jax(tmp_path_factory.mktemp("dispatch")):
+        yield
+
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CPU = "cpu"

@@ -17,6 +17,10 @@ rounded on each side, which rounds identically):
   - the model-layout entry ``ops.attention`` [B, S, H, D] against JAX's,
     on contiguous tensors and on non-contiguous views (q, k and v cut
     from one fused [B, S, H + 2 Hkv, D] projection).
+  - the kernel path under autograd (``ops.FlashAttention``) against
+    JAX's ``custom_vjp`` through ``jax.vjp``: the output and dq, dk, dv
+    within the tolerance above times the largest magnitude, float32 and
+    bf16, causal and full.
 
 The ``gpu`` tests hold both CUDA kernels (bf16 on the tensor cores,
 float32 on the CUDA cores) to the plain version on the card and skip
@@ -50,6 +54,8 @@ RAGGED = (1, 14, 2, 100, 64)
 # b, h, hkv, s, sk, d: Sk != S at every head width, GQA groups 1, 2, 7
 SK_CASES = [(1, h, 2, s, sk, d) for d in HEAD_DIMS
             for h, s, sk in ((2, 40, 72), (4, 72, 40), (14, 50, 90))]
+# the kernel path under autograd: the model layout's shapes
+GRAD_SHAPES = [SHAPES[1], SHAPES[3]]
 DTYPES = ("float32", "bfloat16")
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -64,6 +70,13 @@ def _key(shape):
     return "x".join(map(str, shape))
 
 
+def _cotangent(shape):
+    """A seeded output cotangent [B, S, H, D] for the model layout."""
+    b, h, _, s, d = shape
+    rng = np.random.default_rng([7, *shape])
+    return rng.normal(size=(b, s, h, d)).astype(np.float32)
+
+
 def _sk_inputs(b, h, hkv, s, sk, d):
     rng = np.random.default_rng([b, h, hkv, s, sk, d])
     return tuple(rng.normal(size=shape).astype(np.float32)
@@ -71,6 +84,7 @@ def _sk_inputs(b, h, hkv, s, sk, d):
 
 
 REFERENCE = """
+import jax
 import jax.numpy as jnp
 from repro.kernels.flash_attention import attention_ref, flash_attention
 from repro.kernels.flash_attention.ops import attention
@@ -93,6 +107,22 @@ for key in IN["keys"]:
             sw = [jnp.swapaxes(x, 1, 2) for x in (qj, kj, vj)]
             OUT[tag + "__ops"] = np.asarray(
                 attention(*sw, causal=causal, use_kernel=True), np.float32)
+# the kernel path's gradients: JAX's custom_vjp (the Pallas forward,
+# interpreted, and attention_ref's backward) on the model layout
+for key in IN["grad_keys"]:
+    key = str(key)
+    for dt in ("float32", "bfloat16"):
+        q, k, v = (jnp.asarray(IN[key + n], getattr(jnp, dt))
+                   for n in ("__q", "__k", "__v"))
+        sw = [jnp.swapaxes(x, 1, 2) for x in (q, k, v)]
+        g = jnp.asarray(IN[key + "__g"], getattr(jnp, dt))
+        for causal in (True, False):
+            o, vjp = jax.vjp(lambda a, b, c: attention(
+                a, b, c, causal=causal, use_kernel=True), *sw)
+            tag = f"{key}__{dt}__{int(causal)}__grad"
+            OUT[tag + "__o"] = np.asarray(o, np.float32)
+            for name, gr in zip("qkv", vjp(g)):
+                OUT[f"{tag}__d{name}"] = np.asarray(gr, np.float32)
 for key in IN["sk_keys"]:
     key = str(key)
     qj, kj, vj = (jnp.asarray(IN[key + n], jnp.bfloat16)
@@ -106,7 +136,10 @@ for key in IN["sk_keys"]:
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
     inputs = {"keys": np.array([_key(s) for s in SHAPES + [RAGGED]]),
-              "sk_keys": np.array([_key(s) for s in SK_CASES])}
+              "sk_keys": np.array([_key(s) for s in SK_CASES]),
+              "grad_keys": np.array([_key(s) for s in GRAD_SHAPES])}
+    for shape in GRAD_SHAPES:
+        inputs[f"{_key(shape)}__g"] = _cotangent(shape)
     for shape in SHAPES + [RAGGED]:
         q, k, v = _inputs(*shape)
         inputs.update({f"{_key(shape)}__q": q, f"{_key(shape)}__k": k,
@@ -209,15 +242,55 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad, match):
         flash_attention(*bad(q, k, v))
 
 
-def test_kernel_path_refuses_a_gradient():
+def _model_layout_grads(shape, dtype, causal, use_kernel, device="cpu"):
+    """(o, dq, dk, dv) of ``ops.attention`` on the model layout, for the
+    seeded cotangent, as float32 numpy."""
+    q, k, v = (x.transpose(1, 2).requires_grad_()
+               for x in _torch_inputs(shape, dtype, device))
+    o = attention(q, k, v, causal=causal, use_kernel=use_kernel)
+    g = torch.from_numpy(_cotangent(shape)).to(device=device, dtype=o.dtype)
+    o.backward(g)
+    return tuple(x.detach().float().cpu().numpy()
+                 for x in (o, q.grad, k.grad, v.grad))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", GRAD_SHAPES, ids=_key)
+def test_kernel_path_gradients_match_jax_custom_vjp(ref, shape, causal,
+                                                    dtype):
+    # the autograd Function's backward recomputes through the plain
+    # version, as JAX's custom_vjp recomputes through attention_ref
+    got = _model_layout_grads(shape, dtype, causal, use_kernel=True)
+    tag = f"{_key(shape)}__{dtype}__{int(causal)}__grad"
+    for name, a in zip(("o", "dq", "dk", "dv"), got):
+        want = ref[f"{tag}__{name}"]
+        tol = TOL[dtype] * max(1.0, float(np.abs(want).max()))
+        np.testing.assert_allclose(a, want, rtol=TOL[dtype], atol=tol,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_kernel_path_gradients_equal_the_plain_path_on_the_cpu(causal):
+    # on CPU tensors the kernel path's forward is the plain version, so
+    # the two paths' gradients are the same numbers
+    got = _model_layout_grads(SHAPES[3], "float32", causal, use_kernel=True)
+    want = _model_layout_grads(SHAPES[3], "float32", causal,
+                               use_kernel=False)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_kernel_path_without_a_gradient_keeps_no_graph():
     q, k, v = (x.transpose(1, 2).requires_grad_()
                for x in _torch_inputs((1, 4, 2, 16, 64), "float32"))
-    with pytest.raises(NotImplementedError, match="backward"):
-        attention(q, k, v, use_kernel=True)
     with torch.no_grad():
-        attention(q, k, v, use_kernel=True)
-    attention(q, k, v, use_kernel=False).sum().backward()
-    assert q.grad is not None
+        o = attention(q, k, v, use_kernel=True)
+    assert o.grad_fn is None and not o.requires_grad
+    o = attention(q, k, v, use_kernel=True)
+    assert o.requires_grad
+    o.sum().backward()
+    assert q.grad is not None and k.grad is not None and v.grad is not None
 
 
 def test_cpu_tensors_do_not_count_as_launches():
@@ -314,3 +387,21 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
     with pytest.raises(ValueError, match="multiples of 8"):
         flash_attention(wide[..., :64], k, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", GRAD_SHAPES, ids=_key)
+def test_kernel_path_gradients_on_the_card(cuda, shape, causal, dtype):
+    # K5 forward under autograd: one launch, and the gradients of the
+    # plain recomputation within the kernel's tolerance of the plain path's
+    reset_launch_counts()
+    got = _model_layout_grads(shape, dtype, causal, True, cuda)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == 1
+    want = _model_layout_grads(shape, dtype, causal, False, cuda)
+    for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+        tol = TOL[dtype] * max(1.0, float(np.abs(b).max()))
+        np.testing.assert_allclose(a, b, rtol=TOL[dtype], atol=tol,
+                                   err_msg=name)

@@ -12,6 +12,8 @@ inside the per-test time budget.
 The test modules build their inputs with the port's copy of
 ``core.graph`` (numpy, seeded), so both sides see identical arrays.
 """
+import contextlib
+import json
 import pathlib
 import re
 import textwrap
@@ -56,6 +58,37 @@ def run_reference(body: str, inputs: dict, workdir,
         return {k: f[k] for k in f.files}
 
 
+#: the port's name of each backend of the JAX package
+JAX_BACKENDS = {"reference": "reference", "xla": "torch", "pallas": "cuda",
+                "pallas_persistent": "cuda_persistent"}
+
+
+@contextlib.contextmanager
+def same_dispatch_as_jax(workdir):
+    """Point the port's ``backend="auto"`` at the counterpart of the JAX
+    package's committed dispatch table (``BENCH_dispatch.json``, backends
+    renamed by :data:`JAX_BACKENDS`), for a test module that holds the
+    port's choices of backend (the resilience chain's first rung, say) to
+    JAX's: both sides then resolve "auto" from the same table, whatever
+    the port's own measured table says. Spawned ranks inherit it."""
+    from repro_torch.kernels import dispatch
+
+    with open(REPO / "BENCH_dispatch.json") as f:
+        jax_table = json.load(f)
+    entries = {
+        key: {"winner": JAX_BACKENDS[e["winner"]],
+              "us_per_iter": {JAX_BACKENDS[b]: t
+                              for b, t in e["us_per_iter"].items()}}
+        for key, e in jax_table["entries"].items()}
+    path = dispatch.save_table(entries, {"from": "BENCH_dispatch.json"},
+                               pathlib.Path(workdir) / "dispatch.json")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv(dispatch.TABLE_ENV_VAR, str(path))
+        dispatch.clear_cache()
+        yield path
+    dispatch.clear_cache()
+
+
 def test_harness_round_trip(tmp_path):
     rng = np.random.default_rng(0)
     x = rng.standard_normal((3, 5)).astype(np.float32)
@@ -86,8 +119,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(sources) > 10
     packages = {p.relative_to(REPO / "src" / "repro_torch").parts[0]
                 for p in sources[:-1]}
-    assert {"core", "kernels", "serving", "runtime", "data",
-            "solver"} <= packages
+    assert {"core", "kernels", "serving", "runtime", "data", "solver",
+            "experiments", "training", "checkpoint"} <= packages
     offenders = []
     for path in sources:
         for m in _BANNED.finditer(path.read_text()):
@@ -104,3 +137,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 ])
 def test_import_pattern(line, banned):
     assert bool(_BANNED.search(line)) == banned
+
+
+def test_same_dispatch_as_jax_renames_the_committed_table(tmp_path):
+    from repro_torch.core.single import resolve_auto
+    from repro_torch.kernels import dispatch
+
+    with open(REPO / "BENCH_dispatch.json") as f:
+        want = json.load(f)["entries"]["cpu/single_large"]["winner"]
+    with same_dispatch_as_jax(tmp_path) as path:
+        assert dispatch.table_path() == path
+        assert resolve_auto("cpu") == (JAX_BACKENDS[want], "table")
+    assert dispatch.table_path() != path

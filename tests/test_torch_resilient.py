@@ -54,7 +54,19 @@ from repro_torch.runtime.resilient import (  # noqa: E402
     verify_result,
 )
 from repro_torch.runtime.straggler import StragglerMonitor  # noqa: E402
-from test_torch_harness import run_reference  # noqa: E402
+from test_torch_harness import (  # noqa: E402
+    run_reference,
+    same_dispatch_as_jax,
+)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _same_dispatch_as_jax(tmp_path_factory):
+    """"auto" resolves from the counterpart of JAX's committed dispatch
+    table, so the chain starts where JAX's does (``same_dispatch_as_jax``)."""
+    with same_dispatch_as_jax(tmp_path_factory.mktemp("dispatch")):
+        yield
+
 
 CPU = "cpu"
 LABELS = {"local xla": "local torch", "local pallas": "local cuda",

@@ -51,7 +51,19 @@ from repro_torch.serving import (  # noqa: E402
     solve_with_seed,
     strip_instance,
 )
-from test_torch_harness import run_reference  # noqa: E402
+from test_torch_harness import (  # noqa: E402
+    run_reference,
+    same_dispatch_as_jax,
+)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _same_dispatch_as_jax(tmp_path_factory):
+    """"auto" resolves from the counterpart of JAX's committed dispatch
+    table, so the chain starts where JAX's does (``same_dispatch_as_jax``)."""
+    with same_dispatch_as_jax(tmp_path_factory.mktemp("dispatch")):
+        yield
+
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
