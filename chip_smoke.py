@@ -192,7 +192,21 @@ card, and prints what it measured:
      (``TRAIN_LOSS_TOL``, ``TRAIN_GRAD_TOL``); 5 AdamW steps through
      ``training.loop.train`` (the loss on the first batch must fall), with
      ms per step, tokens a second, peak memory and the device's busy share
-     over one step; then bert4rec at full width, 3 steps at batch 4.
+     over one step; then bert4rec at full width, 3 steps at batch 4;
+ 14. [gnn] the GNN family at its published configs (``models.gnn``):
+     graphsage-reddit on blocks sampled from a host graph of Reddit's
+     size (232,965 nodes, 114,615,892 edges, 602 features, 41 classes;
+     1,024 seeds at fanouts 15/10: 169,984 nodes, 168,960 edges),
+     dimenet and equiformer-v2 on 128 molecules of 30 nodes and 64 edges,
+     graphcast on 169,984 grid nodes (10,624 mesh nodes). Per arch: at
+     2 layers, full width, on a small graph, the card against the CPU
+     (step 1's loss within ``GNN_LOSS_TOL``, each gradient leaf within
+     ``GNN_GRAD_TOL`` of its largest magnitude); at full depth on the
+     cell, a plain gradient step that must lower the loss, then 5 AdamW
+     steps through ``training.loop.train`` (finite losses), with ms per
+     step, peak memory, the device's busy share and top operations over
+     one step, and graphsage's host seconds to build the graph and
+     sample. No hand-written kernel is on this path, and none may launch.
 
 Run from the root of a checkout on a machine with the card:
 
@@ -227,7 +241,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.base import recsys_shape  # noqa: E402
+from repro_torch.configs.base import gnn_shape, recsys_shape  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     MIN_GAIN,
     MatchingProblem,
@@ -244,6 +258,7 @@ from repro_torch.core import (  # noqa: E402
     single,
     solve,
 )
+from repro_torch.data import graphs as gnn_data  # noqa: E402
 from repro_torch.experiments import paper_eval  # noqa: E402
 from repro_torch.kernels import backend  # noqa: E402
 from repro_torch.kernels import dispatch as kdispatch  # noqa: E402
@@ -282,9 +297,12 @@ from repro_torch.launch.serve import (  # noqa: E402
     serve_lm,
     serve_recsys,
 )
-from repro_torch.models import build_defs, build_loss  # noqa: E402
+from repro_torch.models import build_defs, build_loss, gnn_out_dim  # noqa: E402
 from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.gnn.common import GraphBatch  # noqa: E402
+from repro_torch.models.gnn.equiformer_v2 import near_zero_leaves  # noqa: E402
+from repro_torch.models.gnn.sampler import build_csr, sample_blocks  # noqa: E402
 from repro_torch.models.param import count_params  # noqa: E402
 from repro_torch.models.recsys import embedding  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
@@ -380,6 +398,23 @@ TRAIN = dict(batch=4, seq=2048, steps=5, lr=1e-3, seed=0, rec_batch=4,
 # each gradient leaf's max difference as a share of its largest magnitude
 TRAIN_LOSS_TOL = 1e-2
 TRAIN_GRAD_TOL = 2e-2
+# [gnn]: each GNN arch at its published config on a cell of GNN_SHAPES,
+# sized as the JAX package's dry run sizes it; 5 AdamW steps with the
+# launcher's settings, as [train]
+GNN = dict(steps=5, lr=1e-3, seed=0, check_layers=2, fanouts=(15, 10))
+GNN_CELLS = (("graphsage-reddit", "minibatch_lg"), ("dimenet", "molecule"),
+             ("equiformer-v2", "molecule"), ("graphcast", "minibatch_lg"))
+# the card against the CPU at 2 layers: step 1's loss, relative, and each
+# gradient leaf's max difference as a share of its largest magnitude; a
+# leaf that is zero but for a norm's 1e-12 (equiformer-v2's trunk,
+# ``models.gnn.equiformer_v2.near_zero_leaves``) as a share of the
+# model's largest gradient
+GNN_LOSS_TOL = 1e-4
+GNN_GRAD_TOL = 1e-3
+GNN_ZERO_TOL = 1e-5
+# the plain gradient step of the descent check: its first-order decrease
+# of the loss, as shares of the loss, tried largest first
+GNN_DESCENT = (1e-2, 1e-3, 1e-4)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
@@ -2903,6 +2938,200 @@ def phase_train(log, kernels):
     free_card()
 
 
+def reddit_blocks(shape, seed: int):
+    """graphsage's ``minibatch_lg`` batch: a host graph of Reddit's size
+    (random edges, features and labels), its CSR, and blocks sampled from
+    1,024 seeds (the recipe of ``tests/test_configs_smoke.py``). Returns
+    (numpy ``GraphBatch``, host seconds by part)."""
+    n, e, d = shape.d("n_nodes"), shape.d("n_edges"), shape.d("d_feat")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, e)
+    dst = rng.integers(0, n, e)
+    feats = rng.normal(size=(n, d)).astype(np.float32)
+    labels = rng.integers(0, gnn_out_dim(shape.name), n).astype(np.int32)
+    t1 = time.perf_counter()
+    ptr, nbrs = build_csr(n, src, dst)
+    del src, dst
+    t2 = time.perf_counter()
+    blocks = sample_blocks(ptr, nbrs, rng.integers(0, n, shape.d(
+        "batch_nodes")), [shape.d("fanout1"), shape.d("fanout2")], rng)
+    batch = GraphBatch(node_feat=feats[blocks.node_ids],
+                       edge_src=blocks.edge_src, edge_dst=blocks.edge_dst,
+                       labels=labels[blocks.node_ids])
+    t3 = time.perf_counter()
+    return batch, dict(draw_s=t1 - t0, csr_s=t2 - t1, sample_s=t3 - t2)
+
+
+def gnn_cell_batch(cfg, shape, seed: int):
+    """The numpy batch of ``cfg``'s GNN at ``shape``, as the dry run sizes
+    it, and the host seconds it took (by part for graphsage)."""
+    t0 = time.perf_counter()
+    if cfg.kind == "graphsage":
+        return reddit_blocks(shape, seed)
+    n_grid = gnn_data.sampled_sizes(shape.d("batch_nodes"), (
+        shape.d("fanout1"), shape.d("fanout2")))[0]
+    if cfg.kind == "graphcast":
+        batch = gnn_data.random_graphcast_batch(
+            n_grid, cfg.opt("n_vars", 227), seed=seed)
+    else:  # the molecule cell: batch x (n_nodes, n_edges)
+        b = shape.d("batch")
+        batch = gnn_data.random_graph(
+            shape.d("n_nodes") * b, shape.d("n_edges") * b, shape.d("d_feat"),
+            seed=seed, coords=True, n_graphs=b,
+            triplets=cfg.kind == "dimenet")
+    return batch, dict(draw_s=time.perf_counter() - t0)
+
+
+def gnn_small_batch(cfg, shape):
+    """A graph of the JAX tests' sizes with the cell's features and
+    classes (``tests/test_configs_smoke.py::_gnn_batch``)."""
+    if cfg.kind == "graphcast":
+        return gnn_data.random_graphcast_batch(120, cfg.opt("n_vars", 227))
+    coords = cfg.kind in ("dimenet", "equiformer_v2")
+    d = shape.d("d_feat")
+    if shape.name == "molecule":
+        return gnn_data.random_graph(60, 128, d, seed=0, coords=coords,
+                                     n_graphs=4,
+                                     triplets=cfg.kind == "dimenet")
+    return gnn_data.random_graph(80, 240, d, n_classes=gnn_out_dim(
+        shape.name), seed=0, coords=coords, triplets=cfg.kind == "dimenet")
+
+
+def gnn_card_vs_cpu(cfg, shape) -> dict:
+    """At ``GNN["check_layers"]`` layers and full width: one model drawn
+    on the CPU and copied to the card, step 1's loss and gradients on a
+    small graph on both; fails at the first leaf over its bar."""
+    cfg2 = dataclasses.replace(cfg, n_layers=GNN["check_layers"])
+    cpu = build_defs(cfg2, shape, device="cpu", seed=GNN["seed"])
+    card = build_defs(cfg2, shape, seed=GNN["seed"])
+    card.load_state_dict(cpu.state_dict())
+    raw = gnn_small_batch(cfg2, shape)
+    loss_fn = build_loss(cfg2)
+    lc, _, gc_ = loss_and_grads(loss_fn, cpu, to_device(raw, "cpu"))
+    lg, _, gg = loss_and_grads(loss_fn, card, to_device(raw, CARD))
+    rel = abs(float(lg) - float(lc)) / abs(float(lc))
+    require(rel <= GNN_LOSS_TOL, f"[gnn] {cfg.name}: card loss {float(lg)!r} "
+            f"vs CPU {float(lc)!r}: {rel:.3g} relative")
+    zero = near_zero_leaves(cpu) if cfg.kind == "equiformer_v2" else set()
+    largest = max(float(g.abs().max()) for g in gc_.values())
+    worst, at, worst_zero = 0.0, "", 0.0
+    for name, want in gc_.items():  # in the model's order: the first miss
+        diff = float((gg[name].cpu() - want).abs().max())
+        if name in zero:
+            share = diff / largest
+            require(share <= GNN_ZERO_TOL, f"[gnn] {cfg.name}: gradient "
+                    f"{name}: {share:.3g} of the model's largest")
+            worst_zero = max(worst_zero, share)
+            continue
+        share = diff / max(float(want.abs().max()), 1e-30)
+        require(share <= GNN_GRAD_TOL, f"[gnn] {cfg.name}: gradient {name}: "
+                f"{share:.3g} of its largest magnitude (first leaf over "
+                f"{GNN_GRAD_TOL})")
+        if share > worst:
+            worst, at = share, name
+    return dict(loss_cpu=float(lc), loss_card=float(lg), loss_rel=rel,
+                grad_worst=worst, grad_worst_leaf=at,
+                near_zero_worst=worst_zero, near_zero_leaves=len(zero))
+
+
+@torch.no_grad()
+def descent(model, loss_fn, batch, loss0: float, grads: dict):
+    """A plain gradient step p - eta g, with eta such that its first-order
+    decrease is a share of the loss (``GNN_DESCENT``, largest first),
+    must lower the loss on ``batch``. Returns (share, new loss); the
+    parameters are restored."""
+    params = dict(model.named_parameters())
+    saved = {k: p.clone() for k, p in params.items()}
+    g2 = sum(float(torch.sum(g.double() ** 2)) for g in grads.values())
+    tried = []
+    for share in GNN_DESCENT:
+        eta = share * loss0 / g2
+        for k, p in params.items():
+            p.sub_(eta * grads[k])
+        loss = float(loss_fn(model, batch)[0])
+        for k, p in params.items():
+            p.copy_(saved[k])
+        tried.append(loss)
+        if loss < loss0:
+            return share, loss
+    raise AssertionError(f"[gnn] no gradient step lowered the loss "
+                         f"{loss0!r}: {tried}")
+
+
+def phase_gnn(log):
+    """[gnn] the GNN family at full width and depth (``models.gnn``); see
+    the module docstring, 14."""
+    card = log["card"]
+    out = log["gnn"] = {}
+    tr = GNN
+    opt = AdamWConfig(lr=tr["lr"], warmup_steps=max(tr["steps"] // 10, 1),
+                      total_steps=tr["steps"])
+    backend.reset_launch_counts()
+    for arch, cell in GNN_CELLS:
+        cfg = get_config(arch)
+        shape = gnn_shape(cell)
+        check = gnn_card_vs_cpu(cfg, shape)
+        free_card()
+        raw, host = gnn_cell_batch(cfg, shape, tr["seed"])
+        model = build_defs(cfg, shape, seed=tr["seed"])
+        loss_fn = build_loss(cfg)
+        data = lambda step: raw  # noqa: E731 — one batch, copied each step
+        batch0 = to_device(raw, CARD)
+        l0, _, g0 = loss_and_grads(loss_fn, model, batch0)
+        require(np.isfinite(float(l0)) and all(
+            bool(torch.isfinite(g).all()) for g in g0.values()),
+            f"[gnn] {arch}: step 1's loss or gradient is not finite")
+        share, l1 = descent(model, loss_fn, batch0, float(l0), g0)
+        del g0, batch0
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        (_, _, hist), t_all = wall(lambda: train(
+            model, loss_fn, data, opt, n_steps=tr["steps"], log_every=1))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = [h["loss"] for h in hist]
+        require(all(np.isfinite(losses)), f"[gnn] {arch}: losses {losses}")
+        step_s = statistics.median(h["dt"] for h in hist[1:])
+        prof = profiled(lambda: train(model, loss_fn, data, opt,
+                                      n_steps=tr["steps"] + 1,
+                                      log_every=100,
+                                      start_step=tr["steps"]),
+                        f"one {arch} train step")
+        busy = prof["device_busy_s"] / prof["wall_s"]
+        if isinstance(raw, GraphBatch):
+            n_nodes, n_edges = raw.node_feat.shape[0], raw.edge_src.shape[0]
+        else:
+            n_nodes, n_edges = raw.grid_feat.shape[0], raw.g2m_src.shape[0] \
+                + raw.mesh_src.shape[0] + raw.m2g_src.shape[0]
+        host_text = ", ".join(f"{k} {v:.2f} s" for k, v in host.items())
+        print(f"[gnn] {arch} ({cfg.n_layers} layers, d {cfg.d_hidden}, "
+              f"{count_params(model) / 1e6:.2f}M params) on {cell}: "
+              f"{n_nodes} nodes, {n_edges} edges; card vs CPU at "
+              f"{tr['check_layers']} layers: loss {check['loss_rel']:.3g} "
+              f"relative (bar {GNN_LOSS_TOL}), worst leaf "
+              f"{check['grad_worst_leaf']} at {check['grad_worst']:.3g} (bar "
+              f"{GNN_GRAD_TOL}), {check['near_zero_leaves']} near-zero "
+              f"leaves within {check['near_zero_worst']:.3g} of the largest "
+              f"(bar {GNN_ZERO_TOL}) ({card})")
+        print(f"[gnn] {arch}: a gradient step for a {share:g} decrease took "
+              f"the loss from {float(l0)!r} to {l1!r}; 5 AdamW steps in "
+              f"{t_all:.2f} s: losses {losses}; {step_s * 1e3:.1f} ms per "
+              f"later step (first {hist[0]['dt'] * 1e3:.1f} ms); peak "
+              f"memory {peak:.2f} GiB; device busy {100 * busy:.1f}% of a "
+              f"step; host data {host_text} ({card})")
+        out[arch] = dict(cell=cell, n_nodes=n_nodes, n_edges=n_edges,
+                         check=check, descent=dict(share=share,
+                                                   loss0=float(l0),
+                                                   loss1=l1),
+                         losses=losses, step_s=step_s,
+                         first_step_s=hist[0]["dt"], peak_gib=peak,
+                         busy=busy, profile=prof, host_s=host)
+        del model, raw, data
+        free_card()
+    launched = {k: v for k, v in backend.launch_counts().items() if v}
+    require(not launched, f"[gnn] hand-written kernels launched: {launched}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=None,
@@ -2975,6 +3204,7 @@ def main(argv=None) -> int:
     del swap_inputs
     free_card()
     phase_train(log, kernels)
+    phase_gnn(log)
     log["total_s"] = time.perf_counter() - t0
     print(f"[done] {log['total_s']:.1f} s; card {log['card']}")
     if args.out is not None:

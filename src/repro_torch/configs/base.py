@@ -1,6 +1,6 @@
-"""Config dataclasses of the language-model and recsys families, and the
-recsys shape cells (copies of the JAX package's ``configs/base.py``;
-plain frozen dataclasses).
+"""Config dataclasses of the language-model, recsys and GNN families, and
+the recsys and GNN shape cells (copies of the JAX package's
+``configs/base.py``; plain frozen dataclasses).
 
 ``MoECfg`` configures the MoE layers of ``models/moe.py``: its ``router``
 is ``"topk"`` (the published baseline) or ``"awpm"`` (the matching
@@ -15,6 +15,7 @@ does not read them.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 ATTENTION_IMPLS = ("torch", "cuda")
 
@@ -72,6 +73,24 @@ class LMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    kind: str  # graphsage | dimenet | equiformer_v2 | graphcast
+    n_layers: int
+    d_hidden: int
+    extra: tuple[tuple[str, Any], ...] = ()
+    dtype: str = "float32"
+    remat: bool = True
+
+    def opt(self, key, default=None):
+        return dict(self.extra).get(key, default)
+
+    @property
+    def family(self) -> str:
+        return "gnn"
+
+
+@dataclasses.dataclass(frozen=True)
 class RecSysConfig:
     name: str
     kind: str  # bert4rec
@@ -96,8 +115,10 @@ class RecSysConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
-    """One input-shape cell; for the recsys family its ``batch`` and
-    ``n_candidates``."""
+    """One input-shape cell: for the recsys family its ``batch`` and
+    ``n_candidates``; for the GNN family ``n_nodes``, ``n_edges``,
+    ``d_feat``, ``batch_nodes`` and fanouts (sampled) or ``batch``
+    (molecules)."""
 
     name: str
     mode: str
@@ -123,3 +144,30 @@ def recsys_shape(name: str) -> ShapeSpec:
         if spec.name == name:
             return spec
     raise KeyError(f"unknown recsys shape {name!r}")
+
+
+#: the JAX package's ``GNN_SHAPES``: Cora (full graph), Reddit (sampled
+#: blocks from 1,024 seeds at fanouts 15/10), ogbn-products (full graph)
+#: and batches of 128 small molecules
+GNN_SHAPES = (
+    ShapeSpec("full_graph_sm", "train",
+              (("n_nodes", 2708), ("n_edges", 10556), ("d_feat", 1433))),
+    ShapeSpec("minibatch_lg", "train",
+              (("n_nodes", 232965), ("n_edges", 114615892),
+               ("batch_nodes", 1024), ("fanout1", 15), ("fanout2", 10),
+               ("d_feat", 602))),
+    ShapeSpec("ogb_products", "train",
+              (("n_nodes", 2449029), ("n_edges", 61859140),
+               ("d_feat", 100))),
+    ShapeSpec("molecule", "train",
+              (("n_nodes", 30), ("n_edges", 64), ("batch", 128),
+               ("d_feat", 16))),
+)
+
+
+def gnn_shape(name: str) -> ShapeSpec:
+    """The GNN shape cell called ``name``."""
+    for spec in GNN_SHAPES:
+        if spec.name == name:
+            return spec
+    raise KeyError(f"unknown GNN shape {name!r}")

@@ -4,7 +4,9 @@
 synthetic generators (``repro_torch.data.matrices``). Host numpy; a
 problem is built on the card unless the caller asks for the CPU. The JAX
 package's network downloader has no counterpart: the inputs here are
-files on disk, such as the fixtures in ``tests/data/``."""
+files on disk, such as the fixtures in ``tests/data/``. The model side's
+streams are ``repro_torch.data.tokens`` (LM tokens) and
+``repro_torch.data.graphs`` (synthetic graphs of the GNN cells)."""
 from repro_torch.data import matrices, mtx, weight_transforms
 
 __all__ = ["matrices", "mtx", "weight_transforms"]

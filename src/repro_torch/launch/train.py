@@ -15,8 +15,17 @@ to the card and fails where there is none. ``--reduced`` is the smoke
 size and the default; unlike the JAX launcher, whose ``store_true`` flag
 cannot be turned off, ``--no-reduced`` runs the published width and depth.
 ``--grad-accum`` is passed to the train step (the JAX launcher parses it
-and drops it). The GNN family has no training here yet (ROADMAP.md,
-Queue 1, item 12f).
+and drops it); a graph batch has no leading axis to cut, so the train
+step refuses ``--grad-accum > 1`` for the GNN family.
+
+The GNN family trains on the JAX launcher's synthetic graphs: 128 nodes,
+512 edges and 16 features a step (with coordinates for dimenet and
+equiformer-v2, and triplets for dimenet), 7 classes; graphcast on
+256-node grids. Its model is built for the first GNN shape cell with
+``d_feat`` 16 (``gnn_train_shape``), as the JAX launcher overrides it:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch dimenet \
+      --device cpu --steps 2
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ import numpy as np
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config
+from repro_torch.configs.base import GNN_SHAPES, ShapeSpec
 from repro_torch.core.single import resolve_device
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.models import build_defs, build_loss
@@ -50,9 +60,25 @@ def _data_fn(cfg, batch, seq, seed=0):
                     "labels": seqs.astype(np.int32),
                     "mask": mask.astype(np.float32)}
         return fn
-    raise NotImplementedError(
-        f"family {cfg.family!r} has no training data here yet (ROADMAP.md, "
-        f"Queue 1, item 12f)")
+    if cfg.family == "gnn":
+        from repro_torch.data import graphs as G
+
+        def fn(step):
+            if cfg.kind == "graphcast":
+                return G.random_graphcast_batch(256, cfg.opt("n_vars", 12),
+                                                seed=step)
+            return G.random_graph(
+                128, 512, 16, n_classes=7, seed=step,
+                coords=cfg.kind in ("dimenet", "equiformer_v2"),
+                triplets=cfg.kind == "dimenet")
+        return fn
+    raise ValueError(f"unknown family {cfg.family!r}")
+
+
+def gnn_train_shape() -> ShapeSpec:
+    """The shape cell a GNN trains at here: the first GNN cell, with the
+    synthetic graphs' 16 features (the JAX launcher's override)."""
+    return ShapeSpec(GNN_SHAPES[0].name, "train", (("d_feat", 16),))
 
 
 def main(argv=None):
@@ -78,7 +104,8 @@ def main(argv=None):
     if cfg.family == "lm":
         cfg = dataclasses.replace(cfg, attention_impl="cuda")
     device = resolve_device(args.device)
-    model = build_defs(cfg, device=device, seed=0)
+    shape = gnn_train_shape() if cfg.family == "gnn" else None
+    model = build_defs(cfg, shape, device=device, seed=0)
     print(f"{cfg.name}: {count_params(model) / 1e6:.2f}M params on {device}")
     mgr = CheckpointManager(args.ckpt_dir, async_save=True) \
         if args.ckpt_dir else None

@@ -19,6 +19,14 @@ shared gate no bias, and neither does the port) and on one it lacks.
 and ``out_bias``, each dense weight transposed; it too raises on a leaf
 left over or missing. ``recsys_config_from_jax`` copies a
 ``RecSysConfig``'s fields.
+
+``gnn_state_dict_from_jax`` takes the trees of ``graphsage_def``,
+``dimenet_def``, ``equiformer_def`` and ``graphcast_def`` (layer lists,
+not stacked). A JAX path ``a/<i>/b/w`` is the port's ``a.<i>.b.weight``,
+transposed from [in, out] to [out, in]; ``b`` is ``bias``; the raw
+tensors ``bilinear`` [n_bil, d, d], ``mix`` [n_l, c, c] and
+``norm_scale`` [n_l, c] keep their layout. It raises on a leaf left over
+or missing. ``gnn_config_from_jax`` copies a ``GNNConfig``'s fields.
 """
 from __future__ import annotations
 
@@ -27,7 +35,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from repro_torch.configs.base import LMConfig, MoECfg, RecSysConfig
+from repro_torch.configs.base import GNNConfig, LMConfig, MoECfg, RecSysConfig
 
 ATTENTION_IMPL = {"xla": "torch", "pallas": "cuda"}
 
@@ -167,5 +175,80 @@ def bert4rec_state_dict_from_jax(params, cfg) -> dict[str, torch.Tensor]:
                 take(f"blocks/{i}/{leaf}"), transpose)
     for p in ("scale", "bias"):
         out[f"final_ln.{p}"] = _tensor(take(f"final_ln/{p}"))
+    refuse()
+    return out
+
+
+def gnn_config_from_jax(fields: Mapping) -> GNNConfig:
+    """A ``GNNConfig`` from the fields of the JAX package's ``GNNConfig``
+    (``dataclasses.asdict``; ``extra`` may come back from JSON as lists)."""
+    kw = dict(fields)
+    kw["extra"] = tuple((k, tuple(v) if isinstance(v, list) else v)
+                        for k, v in kw.get("extra", ()))
+    return GNNConfig(**kw)
+
+
+def _dense(path: str, bias: bool) -> dict[str, tuple[str, bool]]:
+    name = path.replace("/", ".")
+    out = {f"{path}/w": (f"{name}.weight", True)}
+    if bias:
+        out[f"{path}/b"] = (f"{name}.bias", False)
+    return out
+
+
+def _mlp2(path: str) -> dict[str, tuple[str, bool]]:
+    return {**_dense(f"{path}/l1", True), **_dense(f"{path}/l2", True)}
+
+
+def _raw(path: str) -> dict[str, tuple[str, bool]]:
+    return {path: (path.replace("/", "."), False)}
+
+
+def _gnn_leaves(cfg) -> dict[str, tuple[str, bool]]:
+    """JAX leaf -> (the port's parameter, whether to transpose) for the
+    tree of ``cfg``'s GNN."""
+    n = range(cfg.n_layers)
+    if cfg.kind == "graphsage":
+        out = {}
+        for i in n:
+            out.update(_dense(f"layers/{i}/self", True))
+            out.update(_dense(f"layers/{i}/neigh", False))
+        return {**out, **_dense("out", True)}
+    if cfg.kind == "dimenet":
+        out = {**_dense("embed_node", True), **_dense("embed_edge", True)}
+        for i in n:
+            b = f"blocks/{i}"
+            out.update({**_mlp2(f"{b}/msg"), **_dense(f"{b}/rbf_proj", False),
+                        **_dense(f"{b}/sbf_proj", False),
+                        **_raw(f"{b}/bilinear"), **_mlp2(f"{b}/update"),
+                        **_mlp2(f"{b}/out")})
+        return out
+    if cfg.kind == "equiformer_v2":
+        out = {**_dense("embed", True), **_mlp2("head")}
+        for i in n:
+            b = f"layers/{i}"
+            out.update({**_mlp2(f"{b}/inv_mlp"), **_dense(f"{b}/attn", True),
+                        **_raw(f"{b}/mix"), **_dense(f"{b}/rad_scale", False),
+                        **_dense(f"{b}/sh_inject", False),
+                        **_dense(f"{b}/gate", True),
+                        **_raw(f"{b}/norm_scale")})
+        return out
+    if cfg.kind == "graphcast":
+        out = {}
+        for name in ("grid_embed", "g2m_edge", "mesh_node_enc", "m2g_edge",
+                     "grid_dec"):
+            out.update(_mlp2(name))
+        for i in n:
+            out.update({**_mlp2(f"proc/{i}/edge"), **_mlp2(f"proc/{i}/node")})
+        return out
+    raise ValueError(f"unknown GNN kind {cfg.kind!r}")
+
+
+def gnn_state_dict_from_jax(params, cfg) -> dict[str, torch.Tensor]:
+    """The port's GNN state dict (``models.gnn``) from the JAX parameter
+    tree of ``cfg``'s GNN (numpy arrays)."""
+    take, refuse = _taker(params)
+    out = {name: _tensor(take(key), transpose)
+           for key, (name, transpose) in _gnn_leaves(cfg).items()}
     refuse()
     return out

@@ -1,6 +1,7 @@
 """CSR ``row_ptr`` builders over padded lex-sorted COO edge lists, the
-windowed-search depth they imply, and the host-side assembly of duplicate
-COO entries.
+windowed-search depth they imply, the host-side assembly of duplicate
+COO entries, and the padded CSR of the data pipeline (``PaddedCSR``,
+``sort_coo``, ``coo_to_padded_csr``; numpy, copies of the JAX package's).
 
 The AWAC sweep turns the per-edge completion lookup into a binary search
 inside one CSR row segment; these helpers build that row index on the
@@ -8,10 +9,63 @@ device and size the fixed-depth search of the plain versions.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
 import torch
+
+
+@dataclasses.dataclass
+class PaddedCSR:
+    """CSR with a fixed nnz capacity. Entries [nnz:] are padding with
+    row = n_rows, col = n_cols, val = 0 so that segment ops drop them.
+
+    Also carries the COO row array (sorted) because the matching
+    algorithms are edge-centric.
+    """
+
+    n_rows: int
+    n_cols: int
+    nnz: int
+    row_ptr: np.ndarray  # [n_rows + 1] int32
+    row: np.ndarray  # [cap] int32, sorted
+    col: np.ndarray  # [cap] int32, sorted within rows
+    val: np.ndarray  # [cap] float32
+
+    @property
+    def capacity(self) -> int:
+        return int(self.row.shape[0])
+
+    def valid_mask(self) -> np.ndarray:
+        return np.arange(self.capacity) < self.nnz
+
+
+def sort_coo(row, col, val):
+    """Sort COO triples lexicographically by (row, col)."""
+    order = np.lexsort((col, row))
+    return row[order], col[order], val[order]
+
+
+def coo_to_padded_csr(row, col, val, n_rows, n_cols,
+                      capacity=None) -> PaddedCSR:
+    row = np.asarray(row, dtype=np.int32)
+    col = np.asarray(col, dtype=np.int32)
+    val = np.asarray(val, dtype=np.float32)
+    nnz = int(row.shape[0])
+    if capacity is None:
+        capacity = nnz
+    if capacity < nnz:
+        raise ValueError(f"capacity {capacity} < nnz {nnz}")
+    row, col, val = sort_coo(row, col, val)
+    counts = np.bincount(row, minlength=n_rows)
+    row_ptr = np.zeros(n_rows + 1, dtype=np.int32)
+    np.cumsum(counts, out=row_ptr[1:])
+    pad = capacity - nnz
+    row = np.concatenate([row, np.full(pad, n_rows, dtype=np.int32)])
+    col = np.concatenate([col, np.full(pad, n_cols, dtype=np.int32)])
+    val = np.concatenate([val, np.zeros(pad, dtype=np.float32)])
+    return PaddedCSR(n_rows, n_cols, nnz, row_ptr, row, col, val)
 
 
 def dedupe_coo_sum(row, col, val, n_cols=None):

@@ -1,4 +1,5 @@
-"""Segment-op primitives of the matching engines, on torch tensors.
+"""Segment-op primitives of the matching engines and of GNN message
+passing, on torch tensors.
 
 Padding convention: invalid entries carry ``segment_id == num_segments - 1``
 (the dump segment ``n`` of an ``n + 1``-segment reduction) or are masked to
@@ -15,6 +16,15 @@ an edge list in most rounds, and atomics that all hit the dump segment's
 one address serialize on the card. The max reductions leave ``-inf``
 entries out (they can win nothing), and the walkers' ``segment_min`` sends
 each entry that is not ``live`` to a slot of its own past the segments.
+
+The GNN primitives (``segment_sum``, ``segment_max``, ``segment_argmax``,
+``segment_softmax``, ``coo_spmm``, ``coo_sddmm``) reduce along the leading
+axis of values of any rank and are differentiable. ``jax.ops.segment_sum``
+drops ids outside ``[0, num_segments)``; ``index_add`` and
+``scatter_reduce`` raise on them on the CPU and write out of bounds on the
+card, so callers route padding to a sentinel segment that they slice off,
+as the JAX package's GNN code does. A sum on the card adds in no fixed
+order (atomics), so it differs from run to run at rounding level.
 """
 from __future__ import annotations
 
@@ -229,3 +239,52 @@ def batched_segment_argmax_tie(values, tie, segment_ids, num_segments: int):
     row_offs = torch.arange(b, dtype=torch.int32,
                             device=values.device)[:, None] * m
     return seg_max, torch.where(seg_idx >= 0, seg_idx - row_offs, -1)
+
+
+def segment_sum(values, segment_ids, num_segments: int):
+    """``jax.ops.segment_sum`` along the leading axis (differentiable)."""
+    out = values.new_zeros((num_segments, *values.shape[1:]))
+    return out.index_add(0, segment_ids, values)
+
+
+def segment_max(values, segment_ids, num_segments: int):
+    """``jax.ops.segment_max`` along the leading axis: ``-inf`` in an empty
+    segment. The gradient goes in equal shares to the entries that tie
+    for their segment's max, as JAX's scatter-max rule gives it."""
+    shape = (-1,) + (1,) * (values.dim() - 1)
+    idx = segment_ids.long().reshape(shape).expand_as(values)
+    out = values.new_full((num_segments, *values.shape[1:]), NEG)
+    return out.scatter_reduce(0, idx, values, "amax", include_self=False)
+
+
+def segment_argmax(values, segment_ids, num_segments: int):
+    """Per-segment argmax (row index into ``values``, int32; the smallest
+    on a tie); -1 for an empty segment."""
+    idx = torch.arange(values.shape[0], dtype=torch.int32,
+                       device=values.device)
+    _, arg = segment_max_with_payload(values, idx, segment_ids, num_segments)
+    return arg
+
+
+def segment_softmax(logits, segment_ids, num_segments: int):
+    """Numerically stable softmax within each segment (GAT-style edge
+    softmax); the denominator is clamped at 1e-30."""
+    seg_max = segment_max(logits, segment_ids, num_segments)
+    seg_max = torch.where(torch.isneginf(seg_max), 0.0, seg_max)
+    ex = torch.exp(logits - seg_max[segment_ids])
+    denom = segment_sum(ex, segment_ids, num_segments)
+    return ex / torch.clamp_min(denom[segment_ids], 1e-30)
+
+
+def coo_spmm(row, col, val, x, n_rows: int):
+    """y = A @ x for COO A (row, col, val) and dense x [n_cols, d].
+
+    Padding entries must have ``row == n_rows`` (they are accumulated into
+    a scratch segment and dropped). The GNN message-passing primitive."""
+    msgs = x[col] * val[:, None]
+    return segment_sum(msgs, row, n_rows + 1)[:n_rows]
+
+
+def coo_sddmm(row, col, a, b):
+    """Sampled dense-dense matmul: out[e] = <a[row[e]], b[col[e]]>."""
+    return torch.einsum("ed,ed->e", a[row], b[col])

@@ -9,7 +9,9 @@ device.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
+from collections.abc import Mapping
 from typing import Callable
 
 import numpy as np
@@ -46,12 +48,16 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
     ``grad_accum > 1`` cuts the batch into that many microbatches along
     its leading axis (which it must divide), sums their gradients and
     losses in order and divides by ``grad_accum``, as the JAX package's
-    scan does."""
+    scan does. A graph batch has no such axis and is refused."""
 
     def train_step(params, opt_state, batch):
         if grad_accum == 1:
             loss, _, grads = loss_and_grads(loss_fn, params, batch)
         else:
+            if not isinstance(batch, Mapping):
+                raise ValueError(f"grad_accum={grad_accum} cuts a batch "
+                                 f"along its leading axis; a "
+                                 f"{type(batch).__name__} has none to cut")
             loss, grads = None, None
             for i in range(grad_accum):
                 micro = {k: x.reshape(grad_accum, -1, *x.shape[1:])[i]
@@ -71,8 +77,12 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
     return train_step
 
 
-def to_device(batch: dict, device) -> dict:
-    """A batch of numpy arrays (or tensors) as tensors on ``device``."""
+def to_device(batch, device):
+    """A batch of numpy arrays (or tensors) as tensors on ``device``: a
+    dict, or a graph batch dataclass (``GraphBatch``, ``GraphCastBatch``),
+    which moves itself with its ``to``."""
+    if dataclasses.is_dataclass(batch):
+        return batch.to(device)
     return {k: torch.as_tensor(np.asarray(x) if not torch.is_tensor(x)
                                else x).to(device) for k, x in batch.items()}
 

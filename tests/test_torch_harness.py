@@ -120,7 +120,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     packages = {p.relative_to(REPO / "src" / "repro_torch").parts[0]
                 for p in sources[:-1]}
     assert {"core", "kernels", "serving", "runtime", "data", "solver",
-            "experiments", "training", "checkpoint"} <= packages
+            "experiments", "training", "checkpoint", "models", "configs",
+            "sparse", "launch"} <= packages
+    assert (REPO / "src" / "repro_torch" / "models" / "gnn" /
+            "common.py") in sources
     offenders = []
     for path in sources:
         for m in _BANNED.finditer(path.read_text()):

@@ -297,8 +297,6 @@ def test_convert_refuses_an_unconsumed_leaf(ref):
 def test_config_refusals():
     with pytest.raises(NotImplementedError, match="item 12d"):
         get_config("qwen2-7b")
-    with pytest.raises(NotImplementedError, match="item 12f"):
-        get_config("graphsage-reddit")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-9")
     with pytest.raises(ValueError, match="attention_impl"):
