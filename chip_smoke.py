@@ -11,8 +11,10 @@ static-pivoting sparse solver, the measured dispatch table behind
 qwen2-0.5b and on the MoE model qwen2-moe-a2.7b with the AWPM router,
 both at full width and depth — then bert4rec serving (``serve_recsys``)
 at its published size and the recsys EmbeddingBag and the dense
-cycle-gain tile through their public entries, and training of qwen2-0.5b
-and bert4rec — holds each kernel against its plain torch version on the
+cycle-gain tile through their public entries, the dense LMs qwen2-7b and
+qwen1.5-110b (6 of its 80 layers) at full width, and training of
+qwen2-0.5b (with compressed gradients and a resharded restore) and
+bert4rec — holds each kernel against its plain torch version on the
 card, and prints what it measured:
 
   1. build the kernels (``nvcc``, sm_90a); print the build time and the
@@ -133,8 +135,11 @@ card, and prints what it measured:
      shape; each path timed there, by CUDA events around one call and by
      a CUDA graph of 20 calls, beside its bound, its plain version and
      ``torch.nn.functional.scaled_dot_product_attention``, and the bf16
-     kernel also at qwen2-moe-a2.7b's head shape, q/k/v [4, 16, 2048, 128]
-     causal;
+     kernel also at the served models' head shapes, causal, each held to
+     the plain version: qwen2-moe-a2.7b's q/k/v [4, 16, 2048, 128],
+     qwen2-7b's q [4, 28, 2048, 128] over k/v [4, 4, 2048, 128] and
+     qwen1.5-110b's q [4, 64, 2048, 128] over k/v [4, 8, 2048, 128] (SDPA
+     with ``enable_gqa=True``);
   8. [recsys] bert4rec (embed_dim 64, 2 blocks, 2 heads, seq_len 200, a
      table of 1,000,448 items; float32 weights drawn from seed 0 on the
      card): ``serve_recsys`` at the ``serve_p99`` batch (512), the median
@@ -183,16 +188,33 @@ card, and prints what it measured:
      router's entry (whose CUDA graph must hold K4 alone), with its device
      time from a CUDA graph of 20 launches and per launch from the prefill
      profile;
+ 12a. [dense_lm] qwen2-7b (28 layers, d_model 3,584, 28 heads over 4 kv
+     heads of 128) and qwen1.5-110b cut to 6 of its 80 layers (d_model
+     8,192, 64 heads over 8), each freed before the next is built: float32
+     weights drawn from seed 0 on the card, bf16 activations;
+     ``serve_lm`` with batch 4, a 2,048-token prompt and 32 (qwen2-7b) or
+     8 greedy decode steps, K5 once per layer of the prefill; the prefill
+     through the plain attention and in float32, logits compared as in
+     [lm]; the prefill's model FLOPs (``roofline.analysis.useful_flops``)
+     and their share of the bf16 peak; one prefill and four decode steps
+     under ``torch.profiler``; the smoke-size model on the card against
+     the CPU;
  13. [train] qwen2-0.5b (24 layers, bf16 compute, float32 weights drawn
      from seed 0) training on ``TokenPipeline`` batches of 4 x 2,048
      tokens through the flash-attention kernel's autograd path: K5 once
      per layer in a forward, and again per layer when the checkpointed
      blocks are recomputed in backward; step 1's loss and every gradient
      leaf against the plain attention path on the same weights and batch
-     (``TRAIN_LOSS_TOL``, ``TRAIN_GRAD_TOL``); 5 AdamW steps through
+     (``TRAIN_LOSS_TOL``, ``TRAIN_GRAD_TOL``); step 1's gradients through
+     ``compress_int8_psum`` on the 1x1 NCCL grid's group and through
+     ``compress_topk``, equal bit for bit to the same on the host CPU; 5
+     AdamW steps through
      ``training.loop.train`` (the loss on the first batch must fall), with
      ms per step, tokens a second, peak memory and the device's busy share
-     over one step; then bert4rec at full width, 3 steps at batch 4;
+     over one step; the state after step 5 saved, restored and resharded
+     onto the 1x1 grid (``runtime.elastic.reshard_state``), whose sixth
+     step must equal the sixth step taken without the round trip, bit for
+     bit; then bert4rec at full width, 3 steps at batch 4;
  14. [gnn] the GNN family at its published configs (``models.gnn``):
      graphsage-reddit on blocks sampled from a host graph of Reddit's
      size (232,965 nodes, 114,615,892 edges, 602 features, 41 classes;
@@ -227,6 +249,7 @@ import importlib
 import importlib.util
 import json
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -240,8 +263,13 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.base import gnn_shape, recsys_shape  # noqa: E402
+from repro_torch.configs.base import (  # noqa: E402
+    ShapeSpec,
+    gnn_shape,
+    recsys_shape,
+)
 from repro_torch.core import (  # noqa: E402
     MIN_GAIN,
     MatchingProblem,
@@ -305,6 +333,7 @@ from repro_torch.models.gnn.equiformer_v2 import near_zero_leaves  # noqa: E402
 from repro_torch.models.gnn.sampler import build_csr, sample_blocks  # noqa: E402
 from repro_torch.models.param import count_params  # noqa: E402
 from repro_torch.models.recsys import embedding  # noqa: E402
+from repro_torch.roofline.analysis import useful_flops  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     MatchingService,
     ServiceConfig,
@@ -318,6 +347,7 @@ from repro_torch.runtime.chaos import (  # noqa: E402
     failing_backend,
     run_chaos_matrix,
 )
+from repro_torch.runtime.elastic import reshard_state  # noqa: E402
 from repro_torch.runtime.resilient import (  # noqa: E402
     ResilientMatcher,
     ResilientOptions,
@@ -336,7 +366,13 @@ from repro_torch.sparse.csr import (  # noqa: E402
     batched_row_ptr_from_sorted,
     row_ptr_from_sorted,
 )
-from repro_torch.training import AdamWConfig, train  # noqa: E402
+from repro_torch.training import (  # noqa: E402
+    AdamWConfig,
+    OptState,
+    make_train_step,
+    train,
+)
+from repro_torch.training import grad_compression as gcomp  # noqa: E402
 from repro_torch.training.loop import loss_and_grads, to_device  # noqa: E402
 
 SINGLE = dict(n=1_048_576, avg_degree=16.0, kind="antigreedy", seed=0)
@@ -360,6 +396,13 @@ MOE = dict(batch=4, prompt_len=2048, decode_steps=8, seed=0)
 QWEN2_MOE_PARAMS = 14_315_784_192  # count_params(build_defs(cfg)) in JAX
 MOE_CHECK_LAYERS = (0, 11, 23)
 BERT4REC_PARAMS = 65_142_016  # count_params(build_defs(cfg)) in JAX
+# [dense_lm]: (arch, layers kept or None for all, decode steps); prefill
+# batch and prompt as [lm]. qwen1.5-110b keeps 6 of its 80 layers: its
+# 111.2B float32 parameters take 445 GB, the card 80 GB
+DENSE_LM = dict(batch=4, prompt_len=2048, seed=0,
+                models=(("qwen2-7b", None, 32), ("qwen1.5-110b", 6, 8)))
+# count_params(build_defs(cfg)) in JAX, at the layers kept
+DENSE_LM_PARAMS = {"qwen2-7b": 7_615_616_512, "qwen1.5-110b": 10_645_311_488}
 RECSYS = dict(reps=10, seed=0, check_rows=8, top=10)
 # card against CPU, bert4rec scores: atol as a share of the largest |score|
 RECSYS_TOL = 1e-4
@@ -398,6 +441,8 @@ TRAIN = dict(batch=4, seq=2048, steps=5, lr=1e-3, seed=0, rec_batch=4,
 # each gradient leaf's max difference as a share of its largest magnitude
 TRAIN_LOSS_TOL = 1e-2
 TRAIN_GRAD_TOL = 2e-2
+# compress_topk's share of each gradient leaf kept (the JAX default)
+TOPK_FRAC = 0.01
 # [gnn]: each GNN arch at its published config on a cell of GNN_SHAPES,
 # sized as the JAX package's dry run sizes it; 5 AdamW steps with the
 # launcher's settings, as [train]
@@ -1926,6 +1971,145 @@ def phase_lm(log, kernels):
                      first_ids=ids[:, :8].tolist())
 
 
+def phase_dense_lm(log, kernels):
+    """[dense_lm] qwen2-7b (all 28 layers) and qwen1.5-110b (6 of 80
+    layers, full width) served in turn through ``serve_lm``, float32
+    weights drawn from seed 0 on the card, bf16 activations; each model
+    checked as ``phase_lm`` checks qwen2-0.5b, timed against its model
+    FLOPs (``roofline.analysis.useful_flops``), profiled, and freed
+    before the next is built."""
+    card = log["card"]
+    dev = CARD
+    b, plen = DENSE_LM["batch"], DENSE_LM["prompt_len"]
+    cell = ShapeSpec("prefill", "prefill",
+                     (("seq_len", plen), ("global_batch", b)))
+    out_log = log["dense_lm"] = {}
+    for arch, layers, steps in DENSE_LM["models"]:
+        cfg = dataclasses.replace(get_config(arch), attention_impl="cuda")
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        tag = f"[dense_lm] {arch}"
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        model, t_init = wall(lambda: build_defs(cfg, device=dev,
+                                                seed=DENSE_LM["seed"]))
+        n_params = count_params(model)
+        require(n_params == DENSE_LM_PARAMS[arch],
+                f"{tag} has {n_params} parameters, not "
+                f"{DENSE_LM_PARAMS[arch]}")
+        serve_lm(cfg, b, plen, 2, device=dev, model=model)  # warm-up
+
+        # the main path, as a user calls it; the counts are read right after
+        backend.reset_launch_counts()
+        out = serve_lm(cfg, b, plen, steps, device=dev, model=model)
+        counts = backend.launch_counts()
+        require(counts["flash_attention"] == cfg.n_layers,
+                f"{tag}: {counts['flash_attention']} K5 launches in one "
+                f"serve, not one per layer of the prefill ({cfg.n_layers})")
+        kernels["flash_attention"]["launches"] += counts["flash_attention"]
+        ids = out.ids
+        require(tuple(ids.shape) == (b, steps) and bool((ids >= 0).all())
+                and bool((ids < cfg.vocab).all()),
+                f"{tag}: ids {tuple(ids.shape)} outside the vocabulary")
+        require(bool(torch.isfinite(out.last_logits).all()),
+                f"{tag}: non-finite logits")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+
+        # the prefill alone, through the kernel and the plain attention,
+        # then the same model in float32 (plain attention)
+        tokens = prompt_tokens(cfg, b, plen, DENSE_LM["seed"]).to(dev)
+        plain_cfg = dataclasses.replace(cfg, attention_impl="torch")
+        backend.reset_launch_counts()
+        (kern, _), t_kern = wall(lambda: T.prefill(model, tokens, cfg))
+        pf = backend.launch_counts()["flash_attention"]
+        require(pf == cfg.n_layers, f"{tag}: one prefill launched K5 {pf} "
+                f"times, not {cfg.n_layers}")
+        require(torch.equal(kern, out.last_logits),
+                f"{tag}: a second kernel prefill gave other logits")
+        (plain, _), t_plain = wall(lambda: T.prefill(model, tokens,
+                                                     plain_cfg))
+        diff = float((kern - plain).abs().max())
+        top = float(plain.abs().max())
+        torch.cuda.reset_peak_memory_stats()
+        (f32, _), t_f32 = wall(lambda: T.prefill(
+            model, tokens, dataclasses.replace(plain_cfg, dtype="float32")))
+        f32_peak = torch.cuda.max_memory_allocated() / 2**30
+        err_kern = float((kern - f32).abs().max())
+        err_plain = float((plain - f32).abs().max())
+        agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+        flops = useful_flops(arch, cell.name, "prefill", cfg, cell)
+        share = flops / t_kern / BF16_OPS_PER_S
+        print(f"{tag} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}; {n_params} "
+              f"parameters, float32 weights drawn in {t_init:.2f} s): batch "
+              f"{b}, prompt {plen}, {steps} decode steps; prefill "
+              f"{out.prefill_ms:.1f} ms (serve_lm, with the cache grown), "
+              f"decode {out.decode_ms:.2f} ms/token; peak {peak:.2f} GiB; K5 "
+              f"launches {counts['flash_attention']}; first ids "
+              f"{ids[:, :8].tolist()} ({card})")
+        print(f"{tag} prefill alone {t_kern * 1e3:.1f} ms (kernel) / "
+              f"{t_plain * 1e3:.1f} ms (plain) / {t_f32 * 1e3:.1f} ms "
+              f"(float32, peak {f32_peak:.2f} GiB); model FLOPs "
+              f"{flops:.4g} (useful_flops), {flops / t_kern / 1e12:.1f} "
+              f"TFLOP/s, {100 * share:.1f}% of the bf16 peak ({card})")
+        print(f"{tag} prefill logits, kernel against plain attention: max "
+              f"abs diff {diff!r} (largest |logit| {top!r}, tolerance "
+              f"{LM_LOGIT_TOL * top!r}); against the float32 model: kernel "
+              f"path {err_kern!r}, plain path {err_plain!r}; greedy first "
+              f"token agrees on {agree * b:.0f} of {b} rows")
+        require(diff <= LM_LOGIT_TOL * top,
+                f"{tag}: kernel and plain prefill logits differ by {diff} "
+                f"(largest |logit| {top}, tolerance {LM_LOGIT_TOL} of it)")
+        require(err_kern <= LM_F32_RATIO * err_plain,
+                f"{tag}: against the float32 model the kernel path errs by "
+                f"{err_kern}, the plain path by {err_plain}")
+        del plain, f32
+
+        # where the time goes: one prefill, then four decode steps
+        # cuBLAS's Hopper GEMMs are the nvjet kernels; the bf16 copies are
+        # the float32 weights cast at each use
+        watch = ("flash_fwd", "nvjet", "bfloat16_copy")
+        prof_pf = profiled(lambda: T.prefill(model, tokens, cfg),
+                           f"{tag} prefill", watch=watch)
+        cache = grow_cache(T.prefill(model, tokens, cfg)[1], cfg, plen + 4)
+        tok = kern.argmax(-1)[:, None]
+        prof_dec = profiled(
+            lambda: [T.decode_step(model, cache, tok, plen + i, cfg)
+                     for i in range(4)], f"{tag} 4 decode steps",
+            watch=watch[1:])
+        out_log[arch] = dict(
+            layers=cfg.n_layers, params=n_params, batch=b, prompt_len=plen,
+            decode_steps=steps, prefill_ms=out.prefill_ms,
+            decode_ms_per_token=out.decode_ms, prefill_kernel_ms=t_kern * 1e3,
+            prefill_plain_ms=t_plain * 1e3, prefill_f32_ms=t_f32 * 1e3,
+            peak_gib=peak, f32_peak_gib=f32_peak,
+            launches=counts["flash_attention"], model_flops=flops,
+            bf16_peak_share=share, logits_max_abs_diff=diff,
+            largest_logit=top, f32_err_kernel=err_kern,
+            f32_err_plain=err_plain, first_token_agreement=agree,
+            first_ids=ids[:, :8].tolist(), profile_prefill=prof_pf,
+            profile_decode=prof_dec)
+        del model, cache, out, kern, tokens
+        free_card()
+
+        # the smoke-size model (float32) on the card against the CPU
+        small = dataclasses.replace(get_config(arch, reduced=True),
+                                    attention_impl="cuda")
+        m_cpu = build_defs(small, device="cpu", seed=0)
+        r_gpu = serve_lm(small, 2, 128, 8, device=dev,
+                         model=copy.deepcopy(m_cpu).to(dev))
+        r_cpu = serve_lm(small, 2, 128, 8, device="cpu", model=m_cpu)
+        small_diff = float((r_gpu.last_logits.cpu() - r_cpu.last_logits)
+                           .abs().max())
+        same_ids = torch.equal(r_gpu.ids.cpu(), r_cpu.ids)
+        print(f"{tag}-smoke float32: card and CPU ids equal: {same_ids}; "
+              f"logits max abs diff {small_diff!r}")
+        require(same_ids and small_diff <= SMOKE_TOL,
+                f"{tag} smoke model: card and CPU differ (ids equal: "
+                f"{same_ids}, logits {small_diff})")
+        out_log[arch]["smoke_diff"] = small_diff
+
+
 def phase_flash(log, kernels):
     """K5 against its plain version: the bf16 tensor-core kernel on the
     prefill's shapes and around them (full, a ragged S, D = 16 and 32,
@@ -1985,24 +2169,33 @@ def phase_flash(log, kernels):
               f"{dtype} causal={causal}: kernel == plain within {tol} (max "
               f"abs err {err!r})")
     timed = {}
+    # the head shapes of the served models, each held to the plain version
+    heads = {"d128": "qwen2-moe-a2.7b heads", "qwen2-7b": "qwen2-7b heads",
+             "qwen1.5-110b": "qwen1.5-110b heads"}
     for name, h, hkv, d, dtype in (("d64", 14, 2, 64, bf16),
                                    ("d128", 16, 16, 128, bf16),
+                                   ("qwen2-7b", 28, 4, 128, bf16),
+                                   ("qwen1.5-110b", 64, 8, 128, bf16),
                                    ("d64_f32", 14, 2, 64, f32)):
         q = torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
         k, v = (torch.randn((b, hkv, s, d), generator=gen, device=dev)
                 .to(dtype) for _ in range(2))
-        if name == "d128":  # qwen2-moe-a2.7b's head shape
+        if name in heads:
             got = flash_attention(q, k, v, causal=True)
             sync()
             want = attention_plain(q, k, v, causal=True)
             err = float((got.float() - want.float()).abs().max())
             require(torch.allclose(got.float(), want.float(),
                                    rtol=FLASH_TOL[bf16], atol=FLASH_TOL[bf16]),
-                    f"[flash] D=128: kernel differs from plain by {err}")
+                    f"[flash] {heads[name]} [{b}, {h}, {s}, {d}] / [{b}, "
+                    f"{hkv}, {s}, {d}]: kernel differs from plain by {err}")
             del got, want
             k5["max_abs_err"] = max(k5["max_abs_err"], err)
-            rows.append(dict(case="qwen2-moe-a2.7b heads", dtype=str(bf16),
+            rows.append(dict(case=heads[name], dtype=str(bf16), h=h, hkv=hkv,
                              causal=True, s=s, sk=s, d=d, err=err))
+            print(f"[flash] {heads[name]}: [{b}, {h}, {s}, {d}] / [{b}, "
+                  f"{hkv}, {s}, {d}] bf16 causal: kernel == plain within "
+                  f"{FLASH_TOL[bf16]} (max abs err {err!r})")
         def sdpa():
             return torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True)
@@ -2836,6 +3029,124 @@ def grad_margin(got: dict, want: dict) -> tuple[float, str]:
     return worst, at
 
 
+def compression_check(grads: dict, card: str) -> dict:
+    """[train] step-1 gradients through ``compress_int8_psum`` on the 1x1
+    NCCL grid's group and through ``compress_topk``, on the card and on
+    the host CPU (a one-rank gloo group) from the same gradients: the int8
+    payloads, the int32 sums and the kept indices must be equal bit for
+    bit (and so must the scales, means, kept values and residuals).
+    Prints and returns the time of each."""
+    grid = make_grid(1, 1)  # the card: an NCCL group of one rank
+    host_group = tdist.new_group([0], backend="gloo")
+    cpu = {k: g.detach().cpu() for k, g in grads.items()}
+    out, res = {}, {}
+    for where, tree, group in (("card", grads, grid.col_group),
+                               ("cpu", cpu, host_group)):
+        st = gcomp.init_state(tree)
+        # the first call also starts the group's communicator; a later
+        # call is the steady state
+        _, t_first = wall(lambda: gcomp.compress_int8_psum(tree, st, group))
+        (mean, s8), t_int8 = wall(
+            lambda: gcomp.compress_int8_psum(tree, st, group))
+        (kept, sk), t_topk = wall(
+            lambda: gcomp.compress_topk(tree, st, TOPK_FRAC))
+        res[where] = dict(mean=mean, int8_residual=s8.residual, kept=kept,
+                          topk_residual=sk.residual)
+        out[where] = dict(int8_first_s=t_first, int8_s=t_int8,
+                          topk_s=t_topk)
+    for what, trees in res["card"].items():
+        for name, x in trees.items():
+            require(torch.equal(x.cpu(), res["cpu"][what][name]),
+                    f"[train] {what} of {name} differs on the card from the "
+                    f"CPU")
+    n_kept = 0
+    for name, g in grads.items():
+        z = torch.zeros_like(g)
+        a = gcomp.int8_allreduce(g, z, grid.col_group)
+        c = gcomp.int8_allreduce(cpu[name], z.cpu(), host_group)
+        for field in ("payload", "scale", "summed", "shared_scale"):
+            x, y = getattr(a, field).cpu(), getattr(c, field)
+            require(x.dtype == y.dtype and torch.equal(x, y),
+                    f"[train] int8 exchange of {name}: {field} differs on "
+                    f"the card from the CPU")
+        idx = gcomp.topk_indices(g, TOPK_FRAC).cpu()
+        require(torch.equal(idx, gcomp.topk_indices(cpu[name], TOPK_FRAC)),
+                f"[train] top-k of {name}: the kept indices differ on the "
+                f"card from the CPU")
+        n_kept += idx.numel()
+    tdist.destroy_process_group()
+    n = sum(g.numel() for g in grads.values())
+    print(f"[train] compressed step-1 gradients ({len(grads)} leaves, {n} "
+          f"entries): int8 exchange (payload, scale, int32 sum, shared "
+          f"scale, mean, residual) and top-k {TOPK_FRAC} ({n_kept} kept "
+          f"indices, values, residual) equal on the card and the CPU, bit "
+          f"for bit; compress_int8_psum {out['card']['int8_s'] * 1e3:.1f} ms "
+          f"on the card (1x1 NCCL group; first call "
+          f"{out['card']['int8_first_s'] * 1e3:.1f} ms), "
+          f"{out['cpu']['int8_s'] * 1e3:.1f} ms on the CPU; compress_topk "
+          f"{out['card']['topk_s'] * 1e3:.1f} ms / "
+          f"{out['cpu']['topk_s'] * 1e3:.1f} ms ({card})")
+    return dict(leaves=len(grads), entries=n, kept=n_kept, **out)
+
+
+def reshard_check(model, loss_fn, data, opt, opt_state, step: int,
+                  card: str) -> dict:
+    """[train] the state after ``step`` steps saved with
+    ``CheckpointManager``, restored on the host and cut by
+    ``runtime.elastic.reshard_state`` onto the 1x1 grid: step ``step + 1``
+    from that state must give the loss and every parameter of the same
+    step taken without the round trip, bit for bit."""
+    params = {k: p for k, p in model.named_parameters()}
+    ckdir = ROOT / "build" / "train-ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    mgr = CheckpointManager(ckdir)
+    _, t_save = wall(lambda: mgr.save(step, params, opt_state))
+    like = {"params": {k: torch.empty((), dtype=p.dtype)
+                       for k, p in params.items()},
+            "opt": OptState(torch.empty((), dtype=opt_state.step.dtype),
+                            {k: torch.empty(()) for k in opt_state.m},
+                            {k: torch.empty(()) for k in opt_state.v})}
+    (r_params, r_opt, at), t_restore = wall(lambda: mgr.restore(step, like))
+    require(at == step, f"[train] restored step {at}, not {step}")
+
+    def spec(x):  # rows over "data", columns over "model"
+        return ("data", "model")[:x.dim()]
+
+    grid = make_grid(1, 1)
+    state = {"params": r_params, "opt": r_opt}
+    specs = {"params": {k: spec(x) for k, x in r_params.items()},
+             "opt": OptState((), {k: spec(x) for k, x in r_opt.m.items()},
+                             {k: spec(x) for k, x in r_opt.v.items()})}
+    placed, t_reshard = wall(lambda: reshard_state(state, specs, grid))
+    tdist.destroy_process_group()
+    shutil.rmtree(ckdir, ignore_errors=True)
+    twin = copy.deepcopy(model)
+    with torch.no_grad():
+        for k, p in twin.named_parameters():
+            p.copy_(placed["params"][k])
+    step_fn = make_train_step(loss_fn, opt)
+    batch = to_device(data(step), CARD)
+    _, _, m_direct = step_fn(model, opt_state, batch)
+    _, _, m_round = step_fn(twin, placed["opt"], batch)
+    same_loss = float(m_direct["loss"]) == float(m_round["loss"])
+    twin_params = dict(twin.named_parameters())
+    differ = [k for k, p in model.named_parameters()
+              if not torch.equal(p, twin_params[k])]
+    print(f"[train] step {step + 1} from the state saved after step {step}, "
+          f"restored and resharded onto the 1x1 grid: loss "
+          f"{float(m_round['loss'])!r} against {float(m_direct['loss'])!r} "
+          f"without the round trip; {len(differ)} of {len(twin_params)} "
+          f"parameters differ; save {t_save:.2f} s, restore {t_restore:.2f} "
+          f"s, reshard {t_reshard:.2f} s ({card})")
+    require(same_loss and not differ,
+            f"[train] the resharded state's step differs: loss "
+            f"{float(m_round['loss'])!r} vs {float(m_direct['loss'])!r}, "
+            f"parameters {differ[:5]}")
+    del twin, placed
+    return dict(loss=float(m_round["loss"]), save_s=t_save,
+                restore_s=t_restore, reshard_s=t_reshard)
+
+
 def phase_train(log, kernels):
     """[train] qwen2-0.5b at full width and depth, bf16 compute, the
     flash-attention kernel under autograd (``training``), then bert4rec at
@@ -2866,7 +3177,10 @@ def phase_train(log, kernels):
                                                    batch0))
     rel = abs(float(lk) - float(lp)) / abs(float(lp))
     worst, at = grad_margin(gk, gp)
-    del gk, gp
+    del gp
+    free_card()
+    out["compression"] = compression_check(gk, card)
+    del gk
     free_card()
     require(rel <= TRAIN_LOSS_TOL, f"[train] step-1 loss {float(lk)!r} vs "
             f"plain {float(lp)!r}: {rel:.3g} relative")
@@ -2884,9 +3198,8 @@ def phase_train(log, kernels):
                       total_steps=tr["steps"])
     torch.cuda.reset_peak_memory_stats()
     backend.reset_launch_counts()
-    (_, _, hist), t_all = wall(lambda: train(model, loss_fn, data, opt,
-                                             n_steps=tr["steps"],
-                                             log_every=1))
+    (_, opt_state, hist), t_all = wall(lambda: train(
+        model, loss_fn, data, opt, n_steps=tr["steps"], log_every=1))
     k5 = backend.launch_counts()["flash_attention"]
     peak = torch.cuda.max_memory_allocated() / 2**30
     require(k5 == tr["steps"] * per_step, f"[train] K5 launches {k5}")
@@ -2898,6 +3211,10 @@ def phase_train(log, kernels):
             f"[train] loss {losses} then {after} on batch 0")
     step_s = statistics.median(h["dt"] for h in hist[1:])
     tokens = tr["batch"] * tr["seq"]
+    out["reshard"] = reshard_check(model, loss_fn, data, opt, opt_state,
+                                   tr["steps"], card)
+    del opt_state
+    free_card()
     prof = profiled(lambda: train(model, loss_fn, data, opt,
                                   n_steps=tr["steps"] + 1, log_every=100,
                                   start_step=tr["steps"]),
@@ -3203,6 +3520,7 @@ def main(argv=None) -> int:
     phase_router_swap(log, kernels, swap_inputs)
     del swap_inputs
     free_card()
+    phase_dense_lm(log, kernels)
     phase_train(log, kernels)
     phase_gnn(log)
     log["total_s"] = time.perf_counter() - t0

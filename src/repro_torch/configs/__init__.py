@@ -1,41 +1,50 @@
-"""Architecture registry: ``--arch <id>`` resolution, over the archs the
-port can run (the LM, MoE, recsys and GNN families). The JAX package's
-other archs are known by name and raise ``NotImplementedError`` naming
-the ROADMAP item that ports them."""
+"""Architecture registry: ``--arch <id>`` resolution, over every arch of
+the JAX package's registry: the LM family (dense and MoE), the recsys
+and GNN families, and the paper's own matching config."""
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import GNNConfig, LMConfig, MoECfg, RecSysConfig
+from repro_torch.configs.base import (
+    GNNConfig,
+    LMConfig,
+    MatchingConfig,
+    MoECfg,
+    RecSysConfig,
+    ShapeSpec,
+    shapes_for,
+)
 
 _MODULES = {
     "qwen2-0.5b": "qwen2_0_5b",
+    "qwen1.5-110b": "qwen1_5_110b",
+    "qwen2-7b": "qwen2_7b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "deepseek-moe-16b": "deepseek_moe_16b",
-    "bert4rec": "bert4rec",
     "graphsage-reddit": "graphsage_reddit",
     "equiformer-v2": "equiformer_v2",
     "dimenet": "dimenet",
     "graphcast": "graphcast",
+    "bert4rec": "bert4rec",
+    "awpm-matching": "awpm_paper",
 }
 
-#: archs of the JAX package that the port cannot run yet -> ROADMAP item
-_NOT_YET = {
-    "qwen2-7b": "Queue 1, item 12d (further dense LMs)",
-    "qwen1.5-110b": "Queue 1, item 12d (further dense LMs)",
-    "awpm-matching": "Queue 1, item 11 (port benchmarks)",
-}
+ASSIGNED_ARCHS = tuple(k for k in _MODULES if k != "awpm-matching")
+ALL_ARCHS = tuple(_MODULES)
 
 
 def get_config(arch: str, reduced: bool = False, **kw):
-    if arch in _NOT_YET:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet: ROADMAP.md, {_NOT_YET[arch]}")
     if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; the port runs "
-                       f"{sorted(_MODULES)}")
+        raise KeyError(f"unknown arch {arch!r}; the registry holds "
+                       f"{list(ALL_ARCHS)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return mod.reduced(**kw) if reduced else mod.config(**kw)
 
 
-__all__ = ["GNNConfig", "LMConfig", "MoECfg", "RecSysConfig", "get_config"]
+def list_archs():
+    return ALL_ARCHS
+
+
+__all__ = ["ALL_ARCHS", "ASSIGNED_ARCHS", "GNNConfig", "LMConfig",
+           "MatchingConfig", "MoECfg", "RecSysConfig", "ShapeSpec",
+           "get_config", "list_archs", "shapes_for"]

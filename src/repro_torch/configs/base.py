@@ -1,6 +1,6 @@
-"""Config dataclasses of the language-model, recsys and GNN families, and
-the recsys and GNN shape cells (copies of the JAX package's
-``configs/base.py``; plain frozen dataclasses).
+"""Config dataclasses of the language-model, recsys, GNN and matching
+families, and every family's shape cells with ``shapes_for`` (copies of
+the JAX package's ``configs/base.py``; plain frozen dataclasses).
 
 ``MoECfg`` configures the MoE layers of ``models/moe.py``: its ``router``
 is ``"topk"`` (the published baseline) or ``"awpm"`` (the matching
@@ -114,11 +114,31 @@ class RecSysConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MatchingConfig:
+    """The paper's own 'architecture': distributed AWPM on a sparse matrix."""
+
+    name: str
+    n: int
+    avg_degree: float
+    kind: str = "uniform"
+    max_iter: int = 64
+    a2a_slack: float = 2.0
+
+    @property
+    def family(self) -> str:
+        return "matching"
+
+
+@dataclasses.dataclass(frozen=True)
 class ShapeSpec:
-    """One input-shape cell: for the recsys family its ``batch`` and
-    ``n_candidates``; for the GNN family ``n_nodes``, ``n_edges``,
-    ``d_feat``, ``batch_nodes`` and fanouts (sampled) or ``batch``
-    (molecules)."""
+    """One input-shape cell. Its dims depend on the family:
+
+    lm:       ``seq_len``, ``global_batch``; mode train | prefill | decode
+    gnn:      ``n_nodes``, ``n_edges``, ``d_feat``, ``batch_nodes`` and
+              fanouts (sampled) or ``batch`` (molecules)
+    recsys:   ``batch``, ``n_candidates``
+    matching: ``n``, ``avg_degree``
+    """
 
     name: str
     mode: str
@@ -128,9 +148,17 @@ class ShapeSpec:
         return dict(self.dims).get(key, default)
 
 
-#: the serving cells of the JAX package's ``RECSYS_SHAPES`` (its
-#: ``train_batch`` comes with training)
+LM_SHAPES = (
+    ShapeSpec("train_4k", "train", (("seq_len", 4096), ("global_batch", 256))),
+    ShapeSpec("prefill_32k", "prefill",
+              (("seq_len", 32768), ("global_batch", 32))),
+    ShapeSpec("decode_32k", "decode",
+              (("seq_len", 32768), ("global_batch", 128))),
+    ShapeSpec("long_500k", "decode", (("seq_len", 524288), ("global_batch", 1))),
+)
+
 RECSYS_SHAPES = (
+    ShapeSpec("train_batch", "train", (("batch", 65536),)),
     ShapeSpec("serve_p99", "serve", (("batch", 512),)),
     ShapeSpec("serve_bulk", "serve", (("batch", 262144),)),
     ShapeSpec("retrieval_cand", "retrieval",
@@ -171,3 +199,19 @@ def gnn_shape(name: str) -> ShapeSpec:
         if spec.name == name:
             return spec
     raise KeyError(f"unknown GNN shape {name!r}")
+
+
+MATCHING_SHAPES = (
+    ShapeSpec("match_4m", "match", (("n", 4_194_304), ("avg_degree", 16))),
+    ShapeSpec("match_16m", "match", (("n", 16_777_216), ("avg_degree", 8))),
+)
+
+
+def shapes_for(cfg) -> tuple[ShapeSpec, ...]:
+    """The shape cells of ``cfg``'s family."""
+    return {
+        "lm": LM_SHAPES,
+        "gnn": GNN_SHAPES,
+        "recsys": RECSYS_SHAPES,
+        "matching": MATCHING_SHAPES,
+    }[cfg.family]

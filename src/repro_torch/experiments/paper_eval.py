@@ -26,8 +26,9 @@ a backend that disagrees with "reference" and on an imperfect matching.
 It runs on the card (``device=None``) and raises without one unless it is
 given ``device="cpu"``. Outputs: a markdown table and a JSON record under
 ``results/torch/`` (the JAX runner's ``results/paper_eval.md`` and
-``BENCH_paper_eval.json`` are its own). The JAX package's SuiteSparse
-download has no counterpart: the cases are files on disk.
+``BENCH_paper_eval.json`` are its own). The cases are files on disk;
+``data.suitesparse.fetch`` puts the paper's SuiteSparse instances there
+on request, and nothing here downloads.
 """
 from __future__ import annotations
 

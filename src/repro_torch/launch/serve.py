@@ -204,6 +204,10 @@ def main(argv=None):
     if cfg.family == "recsys":
         serve_recsys(cfg, args.batch, device=args.device)
         return
+    if cfg.family != "lm":
+        raise SystemExit(f"the serving launcher serves the LM and recsys "
+                         f"families; {args.arch} is of the {cfg.family} "
+                         f"family")
     cfg = dataclasses.replace(cfg, attention_impl="cuda")
     serve_lm(cfg, args.batch, args.prompt_len, args.decode_steps,
              device=args.device)

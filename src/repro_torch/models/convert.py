@@ -12,6 +12,9 @@ transposed. It raises on a leaf it does not consume (``moe_def`` gives the
 shared gate no bias, and neither does the port) and on one it lacks.
 ``config_from_jax`` copies an ``LMConfig``'s fields and maps
 ``attention_impl`` "xla" / "pallas" to "torch" / "cuda".
+``param_shapes_from_jax`` maps the shapes of JAX's tree (its
+``abstract_params``) through the same names, for a full-size model that
+is never materialised.
 
 ``bert4rec_state_dict_from_jax`` does the same for the tree of
 ``bert4rec_def``, whose blocks are a list (not stacked): ``items``,
@@ -127,24 +130,54 @@ def _tensor(w: np.ndarray, transpose: bool = False) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(w.T if transpose else w))
 
 
-def state_dict_from_jax(params, cfg) -> dict[str, torch.Tensor]:
-    """The port's ``LM`` state dict from the JAX parameter tree."""
-    take, refuse = _taker(params)
-    out = {"embed": _tensor(take("embed"))}
+def _lm_entries(cfg):
+    """(JAX leaf, the port's parameter, the layers stacked on the leaf's
+    leading axis or None, whether it is a dense weight to transpose) of
+    ``lm_def``'s tree; a stacked leaf's parameter name takes the layer
+    index at ``{}``."""
+    yield "embed", "embed", None, False
     for group, n_layers, moe_layer in _groups(cfg):
         for leaf, (name, transpose) in _block_leaves(cfg, moe_layer).items():
-            key = f"{group}/{leaf}"
-            stacked = take(key)
-            if stacked.shape[0] != n_layers:
-                raise ValueError(f"{key}: {stacked.shape[0]} layers stacked, "
-                                 f"the config has {n_layers}")
-            for i in range(n_layers):
-                out[f"{group}.{i}.{name}"] = _tensor(stacked[i], transpose)
-    out["final_norm.scale"] = _tensor(take("final_norm/scale"))
+            yield f"{group}/{leaf}", f"{group}.{{}}.{name}", n_layers, transpose
+    yield "final_norm/scale", "final_norm.scale", None, False
     if not cfg.tie_embeddings:
-        out["lm_head.weight"] = _tensor(take("lm_head/w"), transpose=True)
+        yield "lm_head/w", "lm_head.weight", None, True
+
+
+def _map_lm(params, cfg, convert) -> dict:
+    """{the port's parameter: convert(array, transpose)} over the JAX tree
+    of ``lm_def``, each stacked leaf split by layer."""
+    take, refuse = _taker(params)
+    out = {}
+    for key, name, n_layers, transpose in _lm_entries(cfg):
+        leaf = take(key)
+        if n_layers is None:
+            out[name] = convert(leaf, transpose)
+            continue
+        if leaf.shape[0] != n_layers:
+            raise ValueError(f"{key}: {leaf.shape[0]} layers stacked, "
+                             f"the config has {n_layers}")
+        for i in range(n_layers):
+            out[name.format(i)] = convert(leaf[i], transpose)
     refuse()
     return out
+
+
+def state_dict_from_jax(params, cfg) -> dict[str, torch.Tensor]:
+    """The port's ``LM`` state dict from the JAX parameter tree."""
+    return _map_lm(params, cfg, _tensor)
+
+
+def param_shapes_from_jax(shapes, cfg) -> dict[str, tuple[int, ...]]:
+    """The shape of each of the port's ``LM`` parameters, from the shapes
+    of the JAX parameter tree ({path: shape}, as JAX's
+    ``abstract_params`` gives them), through the name map of
+    ``state_dict_from_jax``. Nothing of the model's size is allocated."""
+    def stand_in(shape):  # an array of that shape in no memory
+        return np.broadcast_to(np.zeros((), np.float32), tuple(shape))
+
+    return _map_lm({k: stand_in(v) for k, v in shapes.items()}, cfg,
+                   lambda a, t: tuple(a.T.shape if t else a.shape))
 
 
 def recsys_config_from_jax(fields: Mapping) -> RecSysConfig:

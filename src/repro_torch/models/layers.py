@@ -75,8 +75,7 @@ class Dense(nn.Module):
         self.weight = nn.Parameter(torch.empty(d_out, d_in, device=device))
         self.bias = (nn.Parameter(torch.zeros(d_out, device=device))
                      if bias else None)
-        if gen is not None:
-            dense_init(self.weight, gen, fan_in=d_in)
+        dense_init(self.weight, gen, fan_in=d_in)
 
     def forward(self, x):
         y = F.linear(x, self.weight.to(x.dtype))

@@ -51,10 +51,9 @@ class Experts(nn.Module):
         self.gate = nn.Parameter(torch.empty(e, d, ff, device=device))
         self.up = nn.Parameter(torch.empty(e, d, ff, device=device))
         self.down = nn.Parameter(torch.empty(e, ff, d, device=device))
-        if gen is not None:
-            dense_init(self.gate, gen, fan_in=d)
-            dense_init(self.up, gen, fan_in=d)
-            dense_init(self.down, gen, fan_in=ff)
+        dense_init(self.gate, gen, fan_in=d)
+        dense_init(self.up, gen, fan_in=d)
+        dense_init(self.down, gen, fan_in=ff)
 
 
 class MoE(nn.Module):

@@ -14,6 +14,11 @@ from one device type to another; the parity tests make their weights with
 numpy and carry them across (``models.convert``). ``ParamDef`` and the
 logical-axis sharding specs are not ported: the port runs on one device
 with no mesh.
+
+An initialiser given no generator leaves its tensor as it is. On the
+``meta`` device ``generator`` gives None, so a model is built at full size
+with no storage and nothing drawn: the counterpart of JAX's
+``abstract_params``, for counting parameters and reading their shapes.
 """
 from __future__ import annotations
 
@@ -22,23 +27,29 @@ import math
 import torch
 
 
-def generator(seed: int, device) -> torch.Generator:
+def generator(seed: int, device) -> torch.Generator | None:
     """A generator on ``device`` (so that weights are drawn where they
-    live), seeded with ``seed``."""
-    return torch.Generator(device=torch.device(device)).manual_seed(seed)
+    live), seeded with ``seed``; None on the ``meta`` device, which draws
+    nothing."""
+    device = torch.device(device)
+    if device.type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 @torch.no_grad()
-def dense_init(w: torch.Tensor, gen: torch.Generator,
+def dense_init(w: torch.Tensor, gen: torch.Generator | None,
                fan_in: int) -> torch.Tensor:
-    w.normal_(generator=gen).div_(math.sqrt(max(fan_in, 1)))
+    if gen is not None:
+        w.normal_(generator=gen).div_(math.sqrt(max(fan_in, 1)))
     return w
 
 
 @torch.no_grad()
-def embed_init(w: torch.Tensor, gen: torch.Generator,
+def embed_init(w: torch.Tensor, gen: torch.Generator | None,
                scale: float) -> torch.Tensor:
-    w.normal_(generator=gen).mul_(scale)
+    if gen is not None:
+        w.normal_(generator=gen).mul_(scale)
     return w
 
 

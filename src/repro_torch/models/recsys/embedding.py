@@ -24,10 +24,8 @@ def table(n_rows: int, dim: int, device=None,
           gen: torch.Generator | None = None) -> nn.Parameter:
     """An [n_rows, dim] float32 table drawn from ``gen`` as normal x 0.02
     (uninitialised without ``gen``)."""
-    t = torch.empty(n_rows, dim, device=device)
-    if gen is not None:
-        embed_init(t, gen, 0.02)
-    return nn.Parameter(t)
+    return nn.Parameter(embed_init(torch.empty(n_rows, dim, device=device),
+                                   gen, 0.02))
 
 
 def lookup(table, idx):

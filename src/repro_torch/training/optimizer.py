@@ -14,8 +14,10 @@ quantity is float32, as the JAX package computes it.
 The parameters are a mapping name -> tensor (a model's
 ``named_parameters()``, or a dict of tensors); the optimizer state holds
 ``m`` and ``v`` under the same names. The JAX package's
-``abstract_opt_state`` and ``opt_specs`` describe sharded state and have
-no role on one device (ROADMAP.md, Queue 1, item 12g).
+``abstract_opt_state`` and ``opt_specs`` describe the sharded state of
+the dry run, which is not ported yet (ROADMAP.md, Queue 1, the dry-run
+layer); a state on a shrunk grid is cut by ``runtime.elastic.
+reshard_state``.
 """
 from __future__ import annotations
 

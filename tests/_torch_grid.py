@@ -137,6 +137,65 @@ def job_chaos(grid, n=48):
                                   log=lambda *a: None)
 
 
+def job_int8_psum(grid, grads, steps, axis):
+    """``training.grad_compression.compress_int8_psum`` over this rank's
+    group (``axis`` "rows": its grid column's group, which holds every
+    grid row; "row": its grid row's group) for ``steps`` error-feedback
+    steps of this rank's gradients (``grads``: {leaf: [ranks, steps,
+    ...]}). Per step and leaf: the exchange's parts (payload, scale,
+    sum, shared scale, mean, residual) from ``int8_allreduce``, which
+    the tree function's outputs must equal."""
+    import torch
+
+    from repro_torch.training import grad_compression as gc
+
+    group = {"rows": grid.col_group, "row": grid.row_group}[axis]
+    state = gc.init_state({k: torch.from_numpy(v[grid.rank, 0])
+                           for k, v in grads.items()})
+    out = []
+    for s in range(steps):
+        g = {k: torch.from_numpy(v[grid.rank, s]) for k, v in grads.items()}
+        parts = {k: gc.int8_allreduce(g[k], state.residual[k], group)
+                 for k in sorted(g)}
+        mean, state = gc.compress_int8_psum(g, state, group)
+        for k, e in parts.items():
+            assert torch.equal(mean[k], e.mean), k
+            assert torch.equal(state.residual[k], e.residual), k
+        out.append({k: {f: _np(getattr(e, f)) for f in e._fields}
+                    for k, e in parts.items()})
+    return out
+
+
+def job_reshard(grid, dead, leaves, specs, ckdir, step=3):
+    """Save a state with ``checkpoint.CheckpointManager`` (rank 0, into
+    ``ckdir``), restore it whole on every rank, fail the ranks
+    ``dead`` and cut the restored state by ``runtime.elastic.
+    reshard_state`` onto the surviving grid. Returns None outside the
+    grid, else (the grid's shape and this rank's position, its blocks)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.runtime import elastic
+
+    like = {"params": {k: torch.zeros(v.shape, dtype=torch.float32)
+                       for k, v in leaves.items()}}
+    if grid.rank == 0:
+        CheckpointManager(ckdir).save(step, {k: torch.from_numpy(v)
+                                             for k, v in leaves.items()})
+    dist.barrier()
+    params, _, at = CheckpointManager(ckdir).restore_latest(like=like)
+    assert at == step
+    fleet = elastic.fail_hosts(elastic.initial_fleet(grid), dead)
+    new = elastic.surviving_grid(fleet, device="cpu")
+    blocks = elastic.reshard_state(params, {k: tuple(v) for k, v in
+                                            specs.items()}, new)
+    if new is None:
+        return None
+    return ((new.pr, new.pc, new.a, new.b),
+            {k: _np(v) for k, v in blocks.items()})
+
+
 def _corrupt_weight(stage, outs, valid):
     """Nudge the first valid weight of the stage-2 exchange."""
     if stage != 2:
@@ -157,7 +216,8 @@ def _drop_one(stage, outs, valid):
 _TAPS = {"corrupt_weight": _corrupt_weight, "drop_one": _drop_one}
 
 JOBS = {"driver": job_driver, "solve": job_solve, "moe": job_moe,
-        "chaos": job_chaos}
+        "chaos": job_chaos, "int8_psum": job_int8_psum,
+        "reshard": job_reshard}
 
 
 def same(a, b) -> bool:

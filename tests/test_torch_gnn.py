@@ -429,9 +429,17 @@ def test_configs_equal_jax(ref, arch):
 
 
 def test_not_yet_holds_only_12d_and_the_matching_config():
-    from repro_torch.configs import _NOT_YET
+    """The registry once held back qwen2-7b, qwen1.5-110b and
+    awpm-matching; now every arch of the JAX registry resolves and
+    nothing is held back."""
+    from repro_torch import configs
 
-    assert set(_NOT_YET) == {"qwen2-7b", "qwen1.5-110b", "awpm-matching"}
+    assert not hasattr(configs, "_NOT_YET")
+    assert {"qwen2-7b", "qwen1.5-110b", "awpm-matching"} <= set(
+        configs.ALL_ARCHS)
+    for arch in configs.ALL_ARCHS:
+        assert configs.get_config(arch).name == arch
+    assert configs.get_config("awpm-matching").family == "matching"
 
 
 def test_gnn_shape_cells():

@@ -121,9 +121,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 for p in sources[:-1]}
     assert {"core", "kernels", "serving", "runtime", "data", "solver",
             "experiments", "training", "checkpoint", "models", "configs",
-            "sparse", "launch"} <= packages
-    assert (REPO / "src" / "repro_torch" / "models" / "gnn" /
-            "common.py") in sources
+            "sparse", "launch", "roofline"} <= packages
+    port = REPO / "src" / "repro_torch"
+    for module in ("models/gnn/common.py", "roofline/analysis.py",
+                   "training/grad_compression.py", "data/suitesparse.py",
+                   "runtime/elastic.py", "configs/qwen2_7b.py",
+                   "configs/qwen1_5_110b.py", "configs/awpm_paper.py"):
+        assert port / module in sources, module
     offenders = []
     for path in sources:
         for m in _BANNED.finditer(path.read_text()):

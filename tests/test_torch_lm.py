@@ -295,8 +295,17 @@ def test_convert_refuses_an_unconsumed_leaf(ref):
 
 
 def test_config_refusals():
-    with pytest.raises(NotImplementedError, match="item 12d"):
-        get_config("qwen2-7b")
+    # every arch of the JAX registry resolves, full and reduced; only an
+    # unknown name is refused
+    from repro_torch.configs import ALL_ARCHS
+
+    for arch in ALL_ARCHS:
+        for reduced in (False, True):
+            assert get_config(arch, reduced=reduced).family in (
+                "lm", "recsys", "gnn", "matching")
+    big = get_config("qwen2-7b")
+    assert (big.n_layers, big.n_heads, big.n_kv_heads, big.hd) == \
+        (28, 28, 4, 128)
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-9")
     with pytest.raises(ValueError, match="attention_impl"):
