@@ -14,7 +14,8 @@ at its published size and the recsys EmbeddingBag and the dense
 cycle-gain tile through their public entries, the dense LMs qwen2-7b and
 qwen1.5-110b (6 of its 80 layers) at full width, and training of
 qwen2-0.5b (with compressed gradients and a resharded restore) and
-bert4rec — holds each kernel against its plain torch version on the
+bert4rec, the GNN family, and the dry run's cells that one card holds —
+holds each kernel against its plain torch version on the
 card, and prints what it measured:
 
   1. build the kernels (``nvcc``, sm_90a); print the build time and the
@@ -229,6 +230,24 @@ card, and prints what it measured:
      step, peak memory, the device's busy share and top operations over
      one step, and graphsage's host seconds to build the graph and
      sample. No hand-written kernel is on this path, and none may launch.
+ 15. [dryrun] the dry-run layer (``repro_torch.launch.dryrun``): the whole
+     dry run (``--all --mesh both``) in a child process, 84 records that
+     must all be ``ok``, with its host seconds and each cell's dominant
+     roofline term; then five cells that one card holds, each built by
+     ``launch.input_specs`` on a 1 x 1 mesh with ``attention_impl="cuda"``
+     for the LMs, traced on ``meta`` and then run on the card: qwen2-0.5b
+     ``prefill_32k`` (32,768 tokens, batch cut from 32 to 1; K5 24 times)
+     and ``train_4k`` (4,096 tokens, batch cut from 256 to 2; K5 48
+     times, forward and remat), qwen2-7b ``decode_32k`` (a 32,768-token
+     cache, batch cut from 128 to 4), bert4rec ``serve_p99`` (batch 512)
+     and dimenet ``molecule`` (128 graphs), whole. Per cell: the meta
+     FLOPs, which must equal the same counter on the card run; the meta
+     peak (arguments and the trace's temp) beside
+     ``torch.cuda.max_memory_allocated()`` over the step less what the
+     card held beside the arguments before it (the bar is 10%; a miss is
+     printed, not failed); the median of 3 later calls (CUDA events)
+     beside the roofline's dominant term at one chip. The peaks are the
+     cut cells'.
 
 Run from the root of a checkout on a machine with the card:
 
@@ -248,7 +267,9 @@ import gc
 import importlib
 import importlib.util
 import json
+import os
 import pathlib
+import re
 import shutil
 import statistics
 import subprocess
@@ -269,6 +290,7 @@ from repro_torch.configs.base import (  # noqa: E402
     ShapeSpec,
     gnn_shape,
     recsys_shape,
+    shapes_for,
 )
 from repro_torch.core import (  # noqa: E402
     MIN_GAIN,
@@ -333,7 +355,15 @@ from repro_torch.models.gnn.equiformer_v2 import near_zero_leaves  # noqa: E402
 from repro_torch.models.gnn.sampler import build_csr, sample_blocks  # noqa: E402
 from repro_torch.models.param import count_params  # noqa: E402
 from repro_torch.models.recsys import embedding  # noqa: E402
-from repro_torch.roofline.analysis import useful_flops  # noqa: E402
+from repro_torch.launch import dryrun as dry  # noqa: E402
+from repro_torch.launch import input_specs  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.roofline.analysis import (  # noqa: E402
+    attention_work,
+    roofline_terms,
+    swap_work,
+    useful_flops,
+)
 from repro_torch.serving import (  # noqa: E402
     MatchingService,
     ServiceConfig,
@@ -460,6 +490,14 @@ GNN_ZERO_TOL = 1e-5
 # the plain gradient step of the descent check: its first-order decrease
 # of the loss, as shares of the loss, tried largest first
 GNN_DESCENT = (1e-2, 1e-3, 1e-4)
+# [dryrun]: the cells one card holds, built on a 1 x 1 mesh: (arch, shape
+# cell, its dims cut to fit one card, K5 launches a step or None)
+DRYRUN = dict(reps=3, seed=0, peak_tol=0.10, timeout_s=600, cells=(
+    ("qwen2-0.5b", "prefill_32k", {"global_batch": 1}, 24),
+    ("qwen2-0.5b", "train_4k", {"global_batch": 2}, 48),
+    ("qwen2-7b", "decode_32k", {"global_batch": 4}, None),
+    ("bert4rec", "serve_p99", {}, None),
+    ("dimenet", "molecule", {}, None)))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
@@ -1858,16 +1896,6 @@ def phase_quality(log):
     log["ratio_n400"] = ratio
 
 
-def attention_work(b, h, hkv, s, sk, d, causal, itemsize):
-    """Bytes and operations of one attention forward on these shapes: q,
-    k, v read once and o written once; two products of 2 * D operations
-    per (query, key) pair that the mask keeps."""
-    pairs = (float(np.minimum(np.arange(1, s + 1), sk).sum()) if causal
-             else float(s) * sk)
-    return (itemsize * (2 * b * h * s * d + 2 * b * hkv * sk * d),
-            4.0 * b * h * d * pairs)
-
-
 def phase_lm(log, kernels):
     """LM serving on qwen2-0.5b at full width and depth, through the
     flash-attention kernel; the same prefill through the plain attention;
@@ -2827,17 +2855,6 @@ def phase_moe(log, kernels):
     return swap_inputs
 
 
-def swap_work(assign, e: int) -> tuple[float, float]:
-    """Bytes and float32 operations of one swap-gain search on these
-    inputs: the affinity, expert ids and cur read once, gain and partner
-    written once; three additions for each pair of tokens on different
-    experts (a pair on one expert is masked)."""
-    g, t = assign.shape
-    counts = torch.stack([torch.bincount(a, minlength=e) for a in assign])
-    pairs = float(g * t * t - int((counts.double() ** 2).sum()))
-    return g * t * (4 * e + 8) + g * t * 8, 3.0 * pairs
-
-
 def phase_router_swap(log, kernels, inputs):
     """K4 against its plain version, bit for bit, on the router's own
     inputs (layer 0's first routing round: the balanced assignment of its
@@ -3449,6 +3466,138 @@ def phase_gnn(log):
     require(not launched, f"[gnn] hand-written kernels launched: {launched}")
 
 
+def dryrun_start():
+    """The whole dry run (``--all --mesh both``) started in a child
+    process, which runs on the host while the cells run on the card."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--mesh", "both"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True), time.perf_counter()
+
+
+def dryrun_finish(log, started) -> None:
+    """Wait for the whole dry run; its 84 records must all be ok."""
+    card = log["card"]
+    proc, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=DRYRUN["timeout_s"])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    host_s = time.perf_counter() - t0
+    require(proc.returncode == 0, f"[dryrun] --all failed "
+            f"(rc {proc.returncode}): {stdout[-2000:]}{stderr[-2000:]}")
+    recs = {}
+    for line in stdout.splitlines():
+        m = re.match(r"\[(?:OK |FAIL)\] (\S+\.json) ", line)
+        if m:
+            recs[m.group(1)] = json.loads(
+                (dry.RESULTS / m.group(1)).read_text())
+    ok = sum(1 for r in recs.values() if r.get("ok"))
+    require(len(recs) == 84 and ok == 84,
+            f"[dryrun] {ok} of {len(recs)} records ok, not 84 of 84")
+    print(f"[dryrun] --all --mesh both: {ok}/{len(recs)} records ok, "
+          f"{host_s:.1f} s of host time beside the cells ({card})")
+    rows = {}
+    for r in recs.values():
+        rl = r["roofline"]
+        term = rl[f"{rl['dominant']}_s"]
+        rows.setdefault((r["arch"], r["shape"]), {})[r["mesh"]] = \
+            f"{rl['dominant']} {term * 1e3:.3f} ms"
+    for (arch, shape), by_mesh in sorted(rows.items()):
+        print(f"[dryrun] {arch} {shape}: single {by_mesh['single']}, "
+              f"multi {by_mesh['multi']}")
+    log["dryrun"]["all"] = dict(records=len(recs), ok=ok, host_s=host_s,
+                                dominant={f"{a} {s}": v for (a, s), v
+                                          in rows.items()})
+
+
+def dryrun_cell(arch, shape_name, cut, k5, card) -> dict:
+    """One cut cell: traced on meta, then run on the card (see the module
+    docstring, 15)."""
+    cfg = get_config(arch)
+    if cfg.family == "lm":
+        cfg = dataclasses.replace(cfg, attention_impl="cuda")
+    shape = next(s for s in shapes_for(cfg) if s.name == shape_name)
+    shape = dataclasses.replace(shape, dims=tuple(
+        (k, cut.get(k, v)) for k, v in shape.dims))
+    cell = input_specs.build_cell(arch, shape_name, make_mesh(
+        (1, 1), ("data", "model")), cfg_override=cfg, shape=shape)
+    meta = dry.measure(cell)
+    meta_peak = dry.argument_bytes(cell) + meta.temp_bytes
+    args = input_specs.materialize(cell, CARD, seed=DRYRUN["seed"])
+    out = cell.fn(*args)  # warm-up: cuBLAS, the allocator
+    del out
+    free_card()
+    sync()
+    resident = torch.cuda.memory_allocated()
+    arg_bytes = sum(t.untyped_storage().nbytes() for _, t, _ in
+                    dry.arg_leaves(args, cell.in_specs))
+    torch.cuda.reset_peak_memory_stats()
+    backend.reset_launch_counts()
+    on_card = dry.measure(cell, args=args)
+    sync()
+    launches = backend.launch_counts()
+    raw_peak = torch.cuda.max_memory_allocated()
+    beside = resident - arg_bytes  # workspaces and leftovers, not the step's
+    card_peak = raw_peak - beside
+    require(meta.flops == on_card.flops,
+            f"[dryrun] {arch} {shape_name}: meta FLOPs {meta.flops!r} != "
+            f"card {on_card.flops!r}")
+    if k5 is not None:
+        require(launches["flash_attention"] == k5,
+                f"[dryrun] {arch} {shape_name}: K5 launched "
+                f"{launches['flash_attention']} times, not {k5}")
+    off = (meta_peak - card_peak) / card_peak
+    ms = event_ms(lambda: cell.fn(*args), DRYRUN["reps"])
+    rl = roofline_terms(meta.flops, meta.bytes, 0.0)
+    dom_s = getattr(rl, f"{rl.dominant}_s")
+    cut_text = ", ".join(f"{k} {v}" for k, v in cut.items()) or "whole"
+    print(f"[dryrun] {arch} {shape_name} ({cut_text}): FLOPs meta "
+          f"{meta.flops:.6e}, card {on_card.flops:.6e}, equal; peak meta "
+          f"{meta_peak / 2**30:.3f} GiB (arguments "
+          f"{dry.argument_bytes(cell) / 2**30:.3f} + temp "
+          f"{meta.temp_bytes / 2**30:.3f}), card {card_peak / 2**30:.3f} GiB "
+          f"(max_memory_allocated {raw_peak / 2**30:.3f} less "
+          f"{beside / 2**20:.1f} MiB held beside the arguments), "
+          f"{100 * off:+.3f}% ({'within' if abs(off) <= DRYRUN['peak_tol'] else 'MISSES'} "
+          f"the {100 * DRYRUN['peak_tol']:.0f}% bar); {ms:.2f} ms a step "
+          f"(median of {DRYRUN['reps']}, CUDA events) against the "
+          f"dominant term, {rl.dominant}, {dom_s * 1e3:.3f} ms: "
+          f"{100 * dom_s / (ms / 1e3):.1f}%; K5 launches "
+          f"{launches['flash_attention']} ({card})")
+    res = dict(cut=cut, flops_meta=meta.flops, flops_card=on_card.flops,
+               peak_meta=meta_peak, peak_card=card_peak, peak_raw=raw_peak,
+               beside=beside, peak_off=off,
+               within=abs(off) <= DRYRUN["peak_tol"], ms=ms,
+               dominant=rl.dominant, dominant_ms=dom_s * 1e3,
+               k5=launches["flash_attention"], trace_s=meta.trace_s)
+    del args, on_card, cell
+    free_card()
+    return res
+
+
+def phase_dryrun(log):
+    """[dryrun] the dry-run layer; see the module docstring, 15."""
+    card = log["card"]
+    out = log["dryrun"] = {}
+    t0 = time.perf_counter()
+    started = dryrun_start()
+    try:
+        for arch, shape_name, cut, k5 in DRYRUN["cells"]:
+            out[f"{arch} {shape_name}"] = dryrun_cell(arch, shape_name, cut,
+                                                      k5, card)
+    except BaseException:
+        started[0].kill()
+        started[0].communicate()
+        raise
+    dryrun_finish(log, started)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[dryrun] phase {out['phase_s']:.1f} s ({card})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=None,
@@ -3523,6 +3672,7 @@ def main(argv=None) -> int:
     phase_dense_lm(log, kernels)
     phase_train(log, kernels)
     phase_gnn(log)
+    phase_dryrun(log)
     log["total_s"] = time.perf_counter() - t0
     print(f"[done] {log['total_s']:.1f} s; card {log['card']}")
     if args.out is not None:

@@ -413,7 +413,11 @@ def awac_loop(n: int, state: MatchState, max_iter: int, cwinners_fn,
         active = active & active0
     iters = torch.zeros(b, dtype=I32, device=dev)
     aux = aux0
-    while bool(active.any()):
+    # on the meta device (the dry run's trace) no flag can be read: one
+    # round runs, the branch of a round that augments
+    meta, rounds = dev.type == "meta", 0
+    while (rounds < 1) if meta else bool(active.any()):
+        rounds += 1
         Cgain, Ci, Cw1, Cw2, a = cwinners_fn(state)
         new_state, n_surv = single.select_and_augment(n, Cgain, Ci, Cw1, Cw2,
                                                       state)

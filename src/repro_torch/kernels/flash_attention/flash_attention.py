@@ -20,6 +20,13 @@ head ``h // group``, the row max clamped to 0 where a row is all -inf,
 ``l`` clamped at 1e-30, output in q's dtype. It scales the scores after
 the product, as the reference and the bfloat16 kernel do; the float32
 kernel scales q before it, as the TPU kernel did.
+
+A ``meta`` tensor launches nothing: under the kernel's own checks the
+wrapper returns the kernel's output as a ``meta`` tensor in q's layout
+and adds the kernel's work (``roofline.analysis.attention_work``) to an
+open ``kernel_work`` counter, as each launch adds it; nothing is counted
+as a launch. The dry run traces the cells that serve or train with
+``attention_impl="cuda"`` through it.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import backend
+from repro_torch.roofline.analysis import attention_work, count_kernel_work
 
 NEG = float("-inf")
 
@@ -66,7 +74,27 @@ def flash_attention(q, k, v, *, causal: bool = True):
     _check_inputs(q, k, v)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal)
+    if q.device.type == "meta":
+        _check_kernel_shapes(q, k)
+        o = _empty_like_layout(q)
+        _count(q, k, causal)
+        return o
     return _launch(q, k, v, causal)
+
+
+def _check_kernel_shapes(q, k):
+    d, s, sk = q.shape[3], q.shape[2], k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the kernel is built for head_dim in {HEAD_DIMS}, "
+                         f"got {d}")
+    if s == 0 or sk == 0:
+        raise ValueError(f"empty sequence: S={s}, Sk={sk}")
+
+
+def _count(q, k, causal):
+    b, h, s, d = q.shape
+    count_kernel_work("flash_attention", *attention_work(
+        b, h, k.shape[1], s, k.shape[2], d, causal, q.element_size()))
 
 
 def _launch(q, k, v, causal):
@@ -76,11 +104,7 @@ def _launch(q, k, v, causal):
                          f"{q.device}")
     b, h, s, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the kernel is built for head_dim in {HEAD_DIMS}, "
-                         f"got {d}")
-    if s == 0 or sk == 0:
-        raise ValueError(f"empty sequence: S={s}, Sk={sk}")
+    _check_kernel_shapes(q, k)
     o = _empty_like_layout(q)
     tensors = (("q", q), ("k", k), ("v", v), ("o", o))
     for name, x in tensors:
@@ -103,6 +127,7 @@ def _launch(q, k, v, causal):
                               int(causal), 1.0 / (d ** 0.5), stream)
     launches += 1
     backend.check(err, entry)
+    _count(q, k, causal)
     return o
 
 

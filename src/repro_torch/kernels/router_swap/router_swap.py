@@ -12,6 +12,14 @@ tests hold to the JAX reference and the chip check holds the kernel to.
 Unlike the TPU kernel, the CUDA kernel takes any T and any E up to
 ``MAX_EXPERTS``, and ``assign`` as int32 or int64, so nothing is padded
 or cast.
+
+A ``meta`` tensor launches nothing: the wrapper returns the kernel's
+outputs as ``meta`` tensors and adds the kernel's work
+(``roofline.analysis.swap_work``) to an open ``kernel_work`` counter, as
+a launch adds it. The ids cannot be read there, so the pairs are counted
+for an assignment as even as T and E allow (``balanced_counts``), which
+every assignment of the AWPM router's rounds is. Nothing is counted as a
+launch.
 """
 from __future__ import annotations
 
@@ -19,6 +27,12 @@ import torch
 
 from repro_torch.kernels import backend
 from repro_torch.kernels.router_swap.ref import router_swap_plain_batched
+from repro_torch.roofline.analysis import (
+    balanced_counts,
+    count_kernel_work,
+    counting_kernel_work,
+    swap_work,
+)
 
 #: launches of the CUDA kernel since the last ``backend.reset_launch_counts``
 launches = 0
@@ -55,7 +69,23 @@ def router_swap(affinity, assign, cur):
     _check_inputs(affinity, assign, cur)
     if affinity.device.type == "cpu":
         return router_swap_plain_batched(affinity, assign, cur)
+    if affinity.device.type == "meta":
+        return _meta(affinity, assign)
     return _launch(affinity, assign, cur)
+
+
+def _outputs(affinity):
+    g, t, _ = affinity.shape
+    return (torch.empty((g, t), dtype=torch.float32, device=affinity.device),
+            torch.empty((g, t), dtype=torch.int32, device=affinity.device))
+
+
+def _meta(affinity, assign):
+    """The kernel's outputs on ``meta``, and its work counted."""
+    g, t, e = affinity.shape
+    count_kernel_work("router_swap",
+                      *swap_work(assign, e, balanced_counts(g, t, e)))
+    return _outputs(affinity)
 
 
 def _launch(affinity, assign, cur):
@@ -65,8 +95,7 @@ def _launch(affinity, assign, cur):
                          f"{affinity.device}")
     g, t, e = affinity.shape
     ins = [x.contiguous() for x in (affinity, assign, cur)]
-    gain = torch.empty((g, t), dtype=torch.float32, device=affinity.device)
-    partner = torch.empty((g, t), dtype=torch.int32, device=affinity.device)
+    gain, partner = _outputs(affinity)
     lib = backend.library()
     stream = torch.cuda.current_stream(affinity.device).cuda_stream
     err = lib.router_swap(*(x.data_ptr() for x in ins), gain.data_ptr(),
@@ -74,4 +103,6 @@ def _launch(affinity, assign, cur):
                           int(assign.dtype == torch.int64), stream)
     launches += 1
     backend.check(err, "router_swap")
+    if counting_kernel_work():
+        count_kernel_work("router_swap", *swap_work(assign, e))
     return gain, partner

@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.flash_attention.ops import attention as flash_or_plain
+from repro_torch.models.act_sharding import constrain
 from repro_torch.models.layers import Dense, rope
 
 
@@ -34,9 +35,9 @@ class Attention(nn.Module):
 def _qkv(p: Attention, x, positions, cfg):
     b, s, _ = x.shape
     hd = cfg.hd
-    q = p.q(x).reshape(b, s, cfg.n_heads, hd)
-    k = p.k(x).reshape(b, s, cfg.n_kv_heads, hd)
-    v = p.v(x).reshape(b, s, cfg.n_kv_heads, hd)
+    q = constrain(p.q(x).reshape(b, s, cfg.n_heads, hd), "lm_qkv")
+    k = constrain(p.k(x).reshape(b, s, cfg.n_kv_heads, hd), "lm_kv")
+    v = constrain(p.v(x).reshape(b, s, cfg.n_kv_heads, hd), "lm_kv")
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -49,6 +50,7 @@ def self_attention(p: Attention, x, positions, cfg):
     o = flash_or_plain(q, k, v, causal=True,
                        use_kernel=(cfg.attention_impl == "cuda"))
     b, s, _ = x.shape
+    o = constrain(o, "lm_qkv")
     return p.o(o.reshape(b, s, cfg.n_heads * cfg.hd)), (k, v)
 
 

@@ -30,10 +30,15 @@ transposed from [in, out] to [out, in]; ``b`` is ``bias``; the raw
 tensors ``bilinear`` [n_bil, d, d], ``mix`` [n_l, c, c] and
 ``norm_scale`` [n_l, c] keep their layout. It raises on a leaf left over
 or missing. ``gnn_config_from_jax`` copies a ``GNNConfig``'s fields.
+
+Each entry of these name maps also carries the JAX leaf's logical axis
+names (its ``ParamDef.axes``); ``logical_axes`` gives them per parameter
+of the port, in the port's layout, for ``models.param.partition_specs``.
 """
 from __future__ import annotations
 
 from collections.abc import Mapping
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -42,34 +47,58 @@ from repro_torch.configs.base import GNNConfig, LMConfig, MoECfg, RecSysConfig
 
 ATTENTION_IMPL = {"xla": "torch", "pallas": "cuda"}
 
-_FFN = ("gate", "up", "down")
+class Leaf(NamedTuple):
+    """The port's parameter of a JAX leaf, whether it is a dense weight to
+    transpose from [in, out] to [out, in], and the logical axis names of
+    the JAX leaf (its ``ParamDef.axes``, in JAX's layout)."""
+
+    name: str
+    transpose: bool
+    axes: tuple
 
 
-def _block_leaves(cfg, moe_layer: bool) -> dict[str, tuple[str, bool]]:
-    """JAX leaf of a block (below its group) -> the port's parameter, and
-    whether it is a dense weight to transpose."""
+def _block_leaves(cfg, moe_layer: bool) -> dict[str, Leaf]:
+    """JAX leaf of a block (below its group) -> its ``Leaf``."""
+    kv = ("embed", "kv_heads")
     leaves = {
-        "ln1/scale": ("ln1.scale", False),
-        "ln2/scale": ("ln2.scale", False),
-        **{f"attn/{p}/w": (f"attn.{p}.weight", True) for p in "qkvo"},
+        "ln1/scale": Leaf("ln1.scale", False, ("embed",)),
+        "ln2/scale": Leaf("ln2.scale", False, ("embed",)),
+        "attn/q/w": Leaf("attn.q.weight", True, ("embed", "heads")),
+        "attn/k/w": Leaf("attn.k.weight", True, kv),
+        "attn/v/w": Leaf("attn.v.weight", True, kv),
+        "attn/o/w": Leaf("attn.o.weight", True, ("heads", "embed")),
     }
     if cfg.qkv_bias:
-        leaves.update({f"attn/{p}/b": (f"attn.{p}.bias", False)
-                       for p in "qkv"})
+        leaves.update({f"attn/{p}/b": Leaf(f"attn.{p}.bias", False, (ax,))
+                       for p, ax in (("q", "heads"), ("k", "kv_heads"),
+                                     ("v", "kv_heads"))})
     if not moe_layer:
-        leaves.update({f"ffn/{p}/w": (f"ffn.{p}.weight", True) for p in _FFN})
+        leaves.update(_swiglu("ffn"))
         return leaves
     md = cfg.moe
-    leaves["ffn/router/w"] = ("ffn.router.weight", True)
+    leaves["ffn/router/w"] = Leaf("ffn.router.weight", True, ("embed", None))
     # [E, in, out] in both layouts (``moe.Experts``): no transpose
-    leaves.update({f"ffn/experts/{p}": (f"ffn.experts.{p}", False)
-                   for p in _FFN})
+    leaves.update({
+        f"ffn/experts/{p}": Leaf(f"ffn.experts.{p}", False, axes)
+        for p, axes in (("gate", ("experts", "embed", "expert_mlp")),
+                        ("up", ("experts", "embed", "expert_mlp")),
+                        ("down", ("experts", "expert_mlp", "embed")))})
     if md.n_shared:
-        leaves.update({f"ffn/shared/{p}/w": (f"ffn.shared.{p}.weight", True)
-                       for p in _FFN})
+        leaves.update(_swiglu("ffn/shared"))
         if md.shared_gate:
-            leaves["ffn/shared_gate/w"] = ("ffn.shared_gate.weight", True)
+            leaves["ffn/shared_gate/w"] = Leaf("ffn.shared_gate.weight", True,
+                                               ("embed", None))
     return leaves
+
+
+def _swiglu(path: str) -> dict[str, Leaf]:
+    """The leaves of ``mlp_def`` at ``path``: gate and up ("embed",
+    "mlp"), down ("mlp", "embed"), no biases."""
+    name = path.replace("/", ".")
+    return {f"{path}/{p}/w": Leaf(f"{name}.{p}.weight", True, axes)
+            for p, axes in (("gate", ("embed", "mlp")),
+                            ("up", ("embed", "mlp")),
+                            ("down", ("mlp", "embed")))}
 
 
 def _groups(cfg) -> list[tuple[str, int, bool]]:
@@ -131,17 +160,19 @@ def _tensor(w: np.ndarray, transpose: bool = False) -> torch.Tensor:
 
 
 def _lm_entries(cfg):
-    """(JAX leaf, the port's parameter, the layers stacked on the leaf's
-    leading axis or None, whether it is a dense weight to transpose) of
-    ``lm_def``'s tree; a stacked leaf's parameter name takes the layer
-    index at ``{}``."""
-    yield "embed", "embed", None, False
+    """(JAX leaf, the layers stacked on the leaf's leading axis or None,
+    its ``Leaf``) of ``lm_def``'s tree; a stacked leaf's parameter name
+    takes the layer index at ``{}``, and its axes are one layer's."""
+    yield "embed", None, Leaf("embed", False, ("vocab", "embed"))
     for group, n_layers, moe_layer in _groups(cfg):
-        for leaf, (name, transpose) in _block_leaves(cfg, moe_layer).items():
-            yield f"{group}/{leaf}", f"{group}.{{}}.{name}", n_layers, transpose
-    yield "final_norm/scale", "final_norm.scale", None, False
+        for key, leaf in _block_leaves(cfg, moe_layer).items():
+            yield (f"{group}/{key}", n_layers,
+                   leaf._replace(name=f"{group}.{{}}.{leaf.name}"))
+    yield "final_norm/scale", None, Leaf("final_norm.scale", False,
+                                         ("embed",))
     if not cfg.tie_embeddings:
-        yield "lm_head/w", "lm_head.weight", None, True
+        yield "lm_head/w", None, Leaf("lm_head.weight", True,
+                                      ("embed", "vocab"))
 
 
 def _map_lm(params, cfg, convert) -> dict:
@@ -149,7 +180,7 @@ def _map_lm(params, cfg, convert) -> dict:
     of ``lm_def``, each stacked leaf split by layer."""
     take, refuse = _taker(params)
     out = {}
-    for key, name, n_layers, transpose in _lm_entries(cfg):
+    for key, n_layers, (name, transpose, _) in _lm_entries(cfg):
         leaf = take(key)
         if n_layers is None:
             out[name] = convert(leaf, transpose)
@@ -187,27 +218,40 @@ def recsys_config_from_jax(fields: Mapping) -> RecSysConfig:
 
 
 _BERT4REC_BLOCK = {
-    **{f"{n}/{p}": (f"{n}.{p}", False) for n in ("ln1", "ln2")
-       for p in ("scale", "bias")},
-    **{f"{n}/w": (f"{n}.weight", True) for n in
-       ("q", "k", "v", "o", "ffn/up", "ffn/down")},
-    **{f"{n}/b": (f"{n}.bias", False) for n in
-       ("q", "k", "v", "o", "ffn/up", "ffn/down")},
+    **{f"{n}/{p}": Leaf(f"{n}.{p}", False, ("embed",))
+       for n in ("ln1", "ln2") for p in ("scale", "bias")},
+    **{f"{n}/w": Leaf(f"{n}.weight", True, ("embed", "heads"))
+       for n in ("q", "k", "v")},
+    **{f"{n}/b": Leaf(f"{n}.bias", False, ("heads",)) for n in ("q", "k", "v")},
+    "o/w": Leaf("o.weight", True, ("heads", "embed")),
+    "o/b": Leaf("o.bias", False, ("embed",)),
+    "ffn/up/w": Leaf("ffn.up.weight", True, ("embed", "mlp")),
+    "ffn/up/b": Leaf("ffn.up.bias", False, ("mlp",)),
+    "ffn/down/w": Leaf("ffn.down.weight", True, ("mlp", "embed")),
+    "ffn/down/b": Leaf("ffn.down.bias", False, ("embed",)),
 }
+
+
+def _bert4rec_leaves(cfg) -> dict[str, Leaf]:
+    """JAX leaf -> ``Leaf`` for the tree of ``bert4rec_def``."""
+    out = {"items": Leaf("items", False, ("vocab", "embed")),
+           "pos": Leaf("pos", False, (None, "embed")),
+           "out_bias": Leaf("out_bias", False, ("vocab",))}
+    for i in range(cfg.n_blocks):
+        out.update({f"blocks/{i}/{key}": leaf._replace(
+            name=f"blocks.{i}.{leaf.name}")
+            for key, leaf in _BERT4REC_BLOCK.items()})
+    out.update({f"final_ln/{p}": Leaf(f"final_ln.{p}", False, ("embed",))
+                for p in ("scale", "bias")})
+    return out
 
 
 def bert4rec_state_dict_from_jax(params, cfg) -> dict[str, torch.Tensor]:
     """The port's ``Bert4Rec`` state dict from the JAX parameter tree of
     ``bert4rec_def`` (numpy arrays)."""
     take, refuse = _taker(params)
-    out = {name: _tensor(take(name)) for name in ("items", "pos",
-                                                  "out_bias")}
-    for i in range(cfg.n_blocks):
-        for leaf, (name, transpose) in _BERT4REC_BLOCK.items():
-            out[f"blocks.{i}.{name.replace('/', '.')}"] = _tensor(
-                take(f"blocks/{i}/{leaf}"), transpose)
-    for p in ("scale", "bias"):
-        out[f"final_ln.{p}"] = _tensor(take(f"final_ln/{p}"))
+    out = {leaf.name: _tensor(take(key), leaf.transpose)
+           for key, leaf in _bert4rec_leaves(cfg).items()}
     refuse()
     return out
 
@@ -221,50 +265,58 @@ def gnn_config_from_jax(fields: Mapping) -> GNNConfig:
     return GNNConfig(**kw)
 
 
-def _dense(path: str, bias: bool) -> dict[str, tuple[str, bool]]:
+def _dense(path: str, axes, bias_axis=False) -> dict[str, Leaf]:
+    """``dense_def`` at ``path`` with weight ``axes``, and a bias on
+    ``bias_axis`` unless it is False (None is a replicated bias)."""
     name = path.replace("/", ".")
-    out = {f"{path}/w": (f"{name}.weight", True)}
-    if bias:
-        out[f"{path}/b"] = (f"{name}.bias", False)
+    out = {f"{path}/w": Leaf(f"{name}.weight", True, axes)}
+    if bias_axis is not False:
+        out[f"{path}/b"] = Leaf(f"{name}.bias", False, (bias_axis,))
     return out
 
 
-def _mlp2(path: str) -> dict[str, tuple[str, bool]]:
-    return {**_dense(f"{path}/l1", True), **_dense(f"{path}/l2", True)}
+def _mlp2(path: str) -> dict[str, Leaf]:
+    """``mlp2_def`` at ``path``, with its default axes."""
+    return {**_dense(f"{path}/l1", ("embed", "mlp"), "mlp"),
+            **_dense(f"{path}/l2", ("mlp", "embed"), "embed")}
 
 
-def _raw(path: str) -> dict[str, tuple[str, bool]]:
-    return {path: (path.replace("/", "."), False)}
+def _raw(path: str, axes) -> dict[str, Leaf]:
+    return {path: Leaf(path.replace("/", "."), False, axes)}
 
 
-def _gnn_leaves(cfg) -> dict[str, tuple[str, bool]]:
-    """JAX leaf -> (the port's parameter, whether to transpose) for the
-    tree of ``cfg``'s GNN."""
+def _gnn_leaves(cfg) -> dict[str, Leaf]:
+    """JAX leaf -> ``Leaf`` for the tree of ``cfg``'s GNN."""
     n = range(cfg.n_layers)
+    em = ("embed", "mlp")
     if cfg.kind == "graphsage":
         out = {}
         for i in n:
-            out.update(_dense(f"layers/{i}/self", True))
-            out.update(_dense(f"layers/{i}/neigh", False))
-        return {**out, **_dense("out", True)}
+            out.update(_dense(f"layers/{i}/self", em, "mlp"))
+            out.update(_dense(f"layers/{i}/neigh", em))
+        return {**out, **_dense("out", ("mlp", None), None)}
     if cfg.kind == "dimenet":
-        out = {**_dense("embed_node", True), **_dense("embed_edge", True)}
+        out = {**_dense("embed_node", em, "mlp"),
+               **_dense("embed_edge", (None, "mlp"), "mlp")}
         for i in n:
             b = f"blocks/{i}"
-            out.update({**_mlp2(f"{b}/msg"), **_dense(f"{b}/rbf_proj", False),
-                        **_dense(f"{b}/sbf_proj", False),
-                        **_raw(f"{b}/bilinear"), **_mlp2(f"{b}/update"),
-                        **_mlp2(f"{b}/out")})
+            out.update({**_mlp2(f"{b}/msg"),
+                        **_dense(f"{b}/rbf_proj", (None, "mlp")),
+                        **_dense(f"{b}/sbf_proj", (None, None)),
+                        **_raw(f"{b}/bilinear", (None, "embed", "mlp")),
+                        **_mlp2(f"{b}/update"), **_mlp2(f"{b}/out")})
         return out
     if cfg.kind == "equiformer_v2":
-        out = {**_dense("embed", True), **_mlp2("head")}
+        out = {**_dense("embed", em, "mlp"), **_mlp2("head")}
         for i in n:
             b = f"layers/{i}"
-            out.update({**_mlp2(f"{b}/inv_mlp"), **_dense(f"{b}/attn", True),
-                        **_raw(f"{b}/mix"), **_dense(f"{b}/rad_scale", False),
-                        **_dense(f"{b}/sh_inject", False),
-                        **_dense(f"{b}/gate", True),
-                        **_raw(f"{b}/norm_scale")})
+            out.update({**_mlp2(f"{b}/inv_mlp"),
+                        **_dense(f"{b}/attn", ("mlp", None), None),
+                        **_raw(f"{b}/mix", (None, "embed", "mlp")),
+                        **_dense(f"{b}/rad_scale", ("mlp", None)),
+                        **_dense(f"{b}/sh_inject", em),
+                        **_dense(f"{b}/gate", em, None),
+                        **_raw(f"{b}/norm_scale", (None, None))})
         return out
     if cfg.kind == "graphcast":
         out = {}
@@ -277,11 +329,32 @@ def _gnn_leaves(cfg) -> dict[str, tuple[str, bool]]:
     raise ValueError(f"unknown GNN kind {cfg.kind!r}")
 
 
+def logical_axes(cfg) -> dict[str, tuple]:
+    """The logical axis names of each of the port's parameters of
+    ``cfg``'s model, in the port's layout: the JAX leaf's ``ParamDef``
+    axes through the name map above, reversed where the weight is
+    transposed, one layer's axes for each layer of a stacked leaf."""
+    if cfg.family == "lm":
+        entries = [(n_layers, leaf) for _, n_layers, leaf in _lm_entries(cfg)]
+    elif cfg.family == "recsys":
+        entries = [(None, leaf) for leaf in _bert4rec_leaves(cfg).values()]
+    elif cfg.family == "gnn":
+        entries = [(None, leaf) for leaf in _gnn_leaves(cfg).values()]
+    else:
+        raise ValueError(f"{cfg.family!r} has no parameters")
+    out = {}
+    for n_layers, (name, transpose, axes) in entries:
+        axes = tuple(reversed(axes)) if transpose else tuple(axes)
+        for i in range(n_layers or 1):
+            out[name.format(i) if n_layers else name] = axes
+    return out
+
+
 def gnn_state_dict_from_jax(params, cfg) -> dict[str, torch.Tensor]:
     """The port's GNN state dict (``models.gnn``) from the JAX parameter
     tree of ``cfg``'s GNN (numpy arrays)."""
     take, refuse = _taker(params)
-    out = {name: _tensor(take(key), transpose)
-           for key, (name, transpose) in _gnn_leaves(cfg).items()}
+    out = {leaf.name: _tensor(take(key), leaf.transpose)
+           for key, leaf in _gnn_leaves(cfg).items()}
     refuse()
     return out

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.single import resolve_device
+from repro_torch.models.act_sharding import constrain
 from repro_torch.models.gnn.common import (
     MLP2,
     GraphBatch,
@@ -49,6 +50,7 @@ class DimeNet(nn.Module):
     def __init__(self, cfg, d_in: int, n_out: int = 1, device=None,
                  seed: int = 0):
         super().__init__()
+        self.cfg = cfg
         device = resolve_device(device)
         gen = generator(seed, device)
         d = cfg.d_hidden
@@ -131,7 +133,8 @@ def apply(params: DimeNet, gb: GraphBatch, cfg):
         tri = bilinear(w, bp.bilinear, m_kj)
         agg = segment_sum(torch.where(t_valid[:, None], tri, 0.0), tri_dst,
                           e + 1)[:e]
-        m = m + F.silu(bp.update(m + agg) + bp.rbf_proj(rbf)) * edge_valid
+        m = constrain(m + F.silu(bp.update(m + agg) + bp.rbf_proj(rbf))
+                      * edge_valid, "edges")
         # per-block output: edges -> nodes -> graph
         node_out = segment_sum(bp.out(m), node_dst, n + 1)[:n]
         out_sum = node_out if out_sum is None else out_sum + node_out

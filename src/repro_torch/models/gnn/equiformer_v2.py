@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.single import resolve_device
+from repro_torch.models.act_sharding import constrain
 from repro_torch.models.gnn.common import (
     MLP2,
     GraphBatch,
@@ -62,6 +63,7 @@ class EquiformerV2(nn.Module):
     def __init__(self, cfg, d_in: int, n_out: int, device=None,
                  seed: int = 0):
         super().__init__()
+        self.cfg = cfg
         device = resolve_device(device)
         gen = generator(seed, device)
         c = cfg.d_hidden
@@ -154,14 +156,15 @@ def apply(params: EquiformerV2, gb: GraphBatch, cfg):
         # SH injection from the scalar channel map
         inj = lp.sh_inject(xi[:, 0, :])  # [E, C]
         msg = msg + sh[:, :, None] * inj[:, None, :]
-        msg = msg * att[:, None, :] * evalid[:, None, None]
+        msg = constrain(msg * att[:, None, :] * evalid[:, None, None],
+                        "edges3")
         # 4. aggregate + equivariant norm + gated nonlinearity
         agg = segment_sum(msg, agg_dst, n + 1)[:n]
         x = x + agg
         x = _normalize(x, ls, n_l).to(dt) * take(lp.norm_scale, ls)[None].to(
             dt)
         gate = torch.sigmoid(lp.gate(x[:, 0, :])).to(dt)
-        x = x * gate[:, None, :]
+        x = constrain(x * gate[:, None, :], "nodes3")
 
     return params.head(x[:, 0, :])
 

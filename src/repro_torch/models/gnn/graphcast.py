@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.single import resolve_device
+from repro_torch.models.act_sharding import constrain
 from repro_torch.models.gnn.common import MLP2, aggregate, as_tensor, take
 from repro_torch.models.param import generator
 
@@ -45,6 +46,7 @@ class GraphCastBatch:
 class GraphCast(nn.Module):
     def __init__(self, cfg, n_vars: int, device=None, seed: int = 0):
         super().__init__()
+        self.cfg = cfg
         device = resolve_device(device)
         gen = generator(seed, device)
         d = cfg.d_hidden
@@ -85,7 +87,8 @@ def apply(params: GraphCast, gb: GraphCastBatch, cfg):
         em = lp["edge"](torch.cat([hs, hd, hs - hd], dim=-1))
         em = em * mesh_valid.to(em.dtype)
         agg = aggregate(em, mesh_dst, nm, "sum")
-        hm = hm + lp["node"](torch.cat([hm, agg], dim=-1))
+        hm = constrain(hm + lp["node"](torch.cat([hm, agg], dim=-1)),
+                       "nodes")
 
     # ---- decoder: mesh -> grid
     e2s = torch.clamp(gb.m2g_src, 0, nm - 1)

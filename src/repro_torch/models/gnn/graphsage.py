@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.single import resolve_device
+from repro_torch.models.act_sharding import constrain
 from repro_torch.models.gnn.common import (
     GraphBatch,
     aggregate,
@@ -28,6 +29,7 @@ class GraphSAGE(nn.Module):
     def __init__(self, cfg, d_in: int, n_classes: int, device=None,
                  seed: int = 0):
         super().__init__()
+        self.cfg = cfg
         device = resolve_device(device)
         gen = generator(seed, device)
         d = cfg.d_hidden
@@ -51,8 +53,8 @@ def apply(params: GraphSAGE, gb: GraphBatch, cfg):
         neigh = aggregate(take(h, src) * valid.to(h.dtype), gb.edge_dst, n,
                           op="mean")
         h = torch.relu(lp["self"](h) + lp["neigh"](neigh))
-        h = h / torch.clamp_min(
-            torch.linalg.vector_norm(h, dim=-1, keepdim=True), 1e-6)
+        h = constrain(h / torch.clamp_min(
+            torch.linalg.vector_norm(h, dim=-1, keepdim=True), 1e-6), "nodes")
     return params.out(h)  # [N, n_classes]
 
 

@@ -16,6 +16,9 @@ package's dtype rules:
   - ``rope``: the rotation is computed in float32, then cast.
 
 Weights are float32 parameters, cast at each use as in the JAX package.
+``Dense`` and ``MLP`` call ``act_sharding.constrain`` where the JAX
+package does (``w_fsdp`` on the cast weight, ``mlp_hidden``); it returns
+its input.
 A dense product is a plain matrix product outside any kernel and goes to
 ``torch.nn.functional.linear``; ``Dense`` keeps ``nn.Linear``'s layout,
 ``weight`` [out, in]. ``softmax_xent`` is the training loss: JAX's
@@ -27,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models.act_sharding import constrain
 from repro_torch.models.param import dense_init
 
 
@@ -78,7 +82,7 @@ class Dense(nn.Module):
         dense_init(self.weight, gen, fan_in=d_in)
 
     def forward(self, x):
-        y = F.linear(x, self.weight.to(x.dtype))
+        y = F.linear(x, constrain(self.weight.to(x.dtype), "w_fsdp"))
         if self.bias is not None:
             y = y + self.bias.to(x.dtype)
         return y
@@ -95,7 +99,8 @@ class MLP(nn.Module):
         self.down = Dense(hidden, d, device=device, gen=gen)
 
     def forward(self, x):
-        return self.down(F.silu(self.gate(x)) * self.up(x))
+        return self.down(constrain(F.silu(self.gate(x)) * self.up(x),
+                                   "mlp_hidden"))
 
 
 def gelu_mlp(up: Dense, down: Dense, x: torch.Tensor) -> torch.Tensor:

@@ -25,7 +25,9 @@ int32 in JAX).
 ``balanced_assign_batched`` reads one flag from the device per proposal
 round (``active.any()``), as the JAX ``while_loop`` tests it: running to
 ``max_iters`` under the masks gives the same result, because a frozen group
-accepts nothing, but runs every round.
+accepts nothing, but runs every round. On the ``meta`` device, where
+nothing can be read, it does just that (the dry run's route); K4's
+wrapper has a ``meta`` route of its own (``kernels/router_swap``).
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from torch import nn
 
 from repro_torch.core.api import MatchingProblem, SolveOptions, solve
 from repro_torch.kernels.router_swap.ops import router_swap_padded_batched
+from repro_torch.models.act_sharding import constrain
 from repro_torch.models.layers import MLP, Dense
 from repro_torch.models.param import dense_init
 
@@ -137,7 +140,8 @@ def balanced_assign_batched(aff, capacity: int, max_iters: int | None = None):
     cap = torch.full((g, e), capacity, dtype=torch.long, device=dev)
     active = torch.ones(g, dtype=torch.bool, device=dev)
     it = 0
-    while it < max_iters and bool(active.any()):
+    meta = dev.type == "meta"  # no flag to read: every round, masked
+    while it < max_iters and (meta or bool(active.any())):
         blocked = (assigned[:, :t, None] >= 0) | (cap <= 0)[:, None, :]
         aff_m = aff.masked_fill(blocked, NEG)
         best_v = aff_m.amax(dim=2)
@@ -294,7 +298,8 @@ def _expert_ffn_grouped(pe: Experts, xe):
     """xe [G, E, C, d] -> [G, E, C, d] through per-expert SwiGLU. The
     float32 expert weights are cast to xe's dtype at use, as in JAX; the
     products are plain batched matrix products (JAX leaves them to XLA)."""
-    wg, wu, wd = (w.to(xe.dtype) for w in (pe.gate, pe.up, pe.down))
+    wg, wu, wd = (constrain(w.to(xe.dtype), "w_expert")
+                  for w in (pe.gate, pe.up, pe.down))
     g = torch.einsum("gecd,edf->gecf", xe, wg)
     u = torch.einsum("gecd,edf->gecf", xe, wu)
     return torch.einsum("gecf,efd->gecd", F.silu(g) * u, wd)
@@ -378,7 +383,8 @@ def moe_apply(p: MoE, x, cfg, moe, dist_spec=None):
     # dropped entries all land on the dump row e * c, which is cut off
     buf = xt.new_zeros((n_g, e * c + 1, d))
     buf.scatter_(1, flat_idx[..., None].expand(-1, -1, d), src)
-    ye = _expert_ffn_grouped(p.experts, buf[:, :-1].reshape(n_g, e, c, d))
+    buf = constrain(buf[:, :-1].reshape(n_g, e, c, d), "moe_buf4")
+    ye = constrain(_expert_ffn_grouped(p.experts, buf), "moe_buf4")
     ye = ye.reshape(n_g, e * c, d)
     gathered = torch.gather(ye, 1, flat_idx.clamp(0, e * c - 1)[..., None]
                             .expand(-1, -1, d))

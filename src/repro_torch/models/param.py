@@ -11,9 +11,11 @@ the distributions of the JAX package:
 
 The numbers differ from JAX's for the same seed (another generator), and
 from one device type to another; the parity tests make their weights with
-numpy and carry them across (``models.convert``). ``ParamDef`` and the
-logical-axis sharding specs are not ported: the port runs on one device
-with no mesh.
+numpy and carry them across (``models.convert``). ``ParamDef`` is not
+ported: a torch module holds its parameters. Their logical axis names are
+the JAX ``ParamDef``'s, kept beside the name map of ``models.convert``
+(``logical_axes``); ``partition_specs`` maps them to mesh axes through a
+rules dict (``launch.mesh``), as the JAX package's does, for the dry run.
 
 An initialiser given no generator leaves its tensor as it is. On the
 ``meta`` device ``generator`` gives None, so a model is built at full size
@@ -51,6 +53,32 @@ def embed_init(w: torch.Tensor, gen: torch.Generator | None,
     if gen is not None:
         w.normal_(generator=gen).mul_(scale)
     return w
+
+
+def partition_specs(model: torch.nn.Module, rules: dict) -> dict:
+    """{parameter name: spec tuple} of ``model`` (a model built by
+    ``models.build_defs``, which carries its ``cfg``): each logical axis
+    mapped to a mesh axis through ``rules``, None replicated. An axis
+    name with no rule raises ``KeyError`` (a typo is caught), as in the
+    JAX package."""
+    from repro_torch.models.convert import logical_axes
+
+    axes = logical_axes(model.cfg)
+    names = [n for n, _ in model.named_parameters()]
+    if sorted(names) != sorted(axes):
+        raise ValueError(
+            f"the axis map and the model disagree: "
+            f"{sorted(set(names) ^ set(axes))[:8]}")
+
+    def spec(name):
+        entries = []
+        for ax in axes[name]:
+            if ax is not None and ax not in rules:
+                raise KeyError(f"no sharding rule for logical axis {ax!r}")
+            entries.append(None if ax is None else rules[ax])
+        return tuple(entries)
+
+    return {n: spec(n) for n in names}
 
 
 def count_params(module: torch.nn.Module) -> int:

@@ -24,8 +24,8 @@ and dtypes:
 
 The serving entries run under ``torch.no_grad``; the masked-item (Cloze)
 loss ``loss_fn`` runs the same trunk (``_encode``, ``_logits``) with
-gradients. The JAX package pins activation shardings (``constrain``);
-that has no role on one device and is not ported.
+gradients. ``act_sharding.constrain`` is called where the JAX package
+calls it (``rec_act``); it returns its input.
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.single import resolve_device
+from repro_torch.models.act_sharding import constrain
 from repro_torch.models.layers import Dense, GeluMLP, LayerNorm, softmax_xent
 from repro_torch.models.param import embed_init, generator
 from repro_torch.models.recsys.embedding import lookup, table
@@ -81,11 +82,12 @@ class Bert4Rec(nn.Module):
                                                  device=device))
 
     def _encode(self, item_seq):
-        x = lookup(self.items, item_seq)
+        x = constrain(lookup(self.items, item_seq), "rec_act")
         x = x + self.pos[None, : x.shape[1]]
         for bp in self.blocks:
-            x = x + bp.attention(bp.ln1(x), self.cfg.n_heads)
-            x = x + bp.ffn(bp.ln2(x))
+            x = constrain(x + bp.attention(bp.ln1(x), self.cfg.n_heads),
+                          "rec_act")
+            x = constrain(x + bp.ffn(bp.ln2(x)), "rec_act")
         return self.final_ln(x)
 
     def _logits(self, hidden):

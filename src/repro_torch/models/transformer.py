@@ -4,10 +4,11 @@ with MoE layers, the serving entry points ``forward``, ``prefill`` and
 package's ``models/transformer.py``).
 
 The JAX package stacks each parameter along a leading layer axis and runs
-the layers under ``lax.scan``, and pins activation shardings with
-``constrain`` (``act_sharding.py``). Those are compilation and sharding
-devices with no role on one eager device, so they are not ported: here
-the layers are ``ModuleList``s run by a Python loop. Its ``jax.checkpoint``
+the layers under ``lax.scan``, a compilation device with no role on one
+eager device: here the layers are ``ModuleList``s run by a Python loop.
+``act_sharding.constrain`` is called where the JAX package calls it, with
+its keys (``lm_act``, ``lm_logits``); it returns its input, and under a
+dry-run policy records the activation. Its ``jax.checkpoint``
 of each layer (``cfg.remat``) is ``torch.utils.checkpoint`` of each block
 in the loss, which recomputes the block in backward; the serving entries
 run under ``torch.no_grad`` and keep nothing to recompute. The layer
@@ -23,6 +24,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.single import resolve_device
+from repro_torch.models.act_sharding import constrain
 from repro_torch.models.attention import (
     Attention,
     decode_attention,
@@ -86,8 +88,8 @@ def _head(params: LM, x, cfg):
     embedding table, as in the JAX package."""
     x = rmsnorm(params.final_norm.scale, x)
     if cfg.tie_embeddings:
-        return x.float() @ params.embed.float().T
-    return params.lm_head(x).float()
+        return constrain(x.float() @ params.embed.float().T, "lm_logits")
+    return constrain(params.lm_head(x).float(), "lm_logits")
 
 
 def _block_groups(params: LM, cfg):
@@ -109,9 +111,9 @@ def _ffn(bp: Block, x, cfg):
 def _block(bp: Block, x, positions, cfg):
     """One block: (x after it, its aux loss or None, its (k, v))."""
     h, kv = self_attention(bp.attn, bp.ln1(x), positions, cfg)
-    x = x + h
+    x = constrain(x + h, "lm_act")
     f, a = _ffn(bp, bp.ln2(x), cfg)
-    return x + f, a, kv
+    return constrain(x + f, "lm_act"), a, kv
 
 
 def _block_remat(bp: Block, x, positions, cfg):
@@ -132,7 +134,7 @@ def _trunk(params: LM, tokens, cfg, collect_cache: bool,
     None). ``remat`` checkpoints each block (training)."""
     dtype = getattr(torch, cfg.dtype)
     b, s = tokens.shape
-    x = params.embed[tokens].to(dtype)
+    x = constrain(params.embed[tokens].to(dtype), "lm_act")
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
     aux = torch.zeros((), device=x.device)
@@ -199,6 +201,7 @@ def _chunked_loss_fn(params: LM, batch, cfg):
             logits = h.float() @ params.embed.float().T
         else:
             logits = params.lm_head(h).float()
+        logits = constrain(logits, "lm_logits")
         lse = torch.logsumexp(logits, dim=-1)
         ll = torch.gather(logits, -1, lab.long()[..., None])[..., 0]
         msk = msk.float()

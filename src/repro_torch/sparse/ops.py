@@ -16,6 +16,9 @@ an edge list in most rounds, and atomics that all hit the dump segment's
 one address serialize on the card. The max reductions leave ``-inf``
 entries out (they can win nothing), and the walkers' ``segment_min`` sends
 each entry that is not ``live`` to a slot of its own past the segments.
+Leaving them out takes a count from the device (``nonzero``); on the
+``meta`` device (the dry run's trace), where nothing can be read, every
+entry is kept, the most a round can hold.
 
 The GNN primitives (``segment_sum``, ``segment_max``, ``segment_argmax``,
 ``segment_softmax``, ``coo_spmm``, ``coo_sddmm``) reduce along the leading
@@ -64,6 +67,14 @@ def segment_min(values, segment_ids, num_segments: int, live=None):
     return segment_reduce(values, seg, num_segments + m, "amin")[:num_segments]
 
 
+def _finite_entries(values):
+    """The indices of the entries of ``values`` [m] above -inf (one host
+    read for their count); on ``meta``, every index."""
+    if values.device.type == "meta":
+        return torch.arange(values.shape[0], device=values.device)
+    return (values != NEG).nonzero().squeeze(1)
+
+
 def segment_max_with_payload(values, payload, segment_ids, num_segments: int):
     """Per-segment max of ``values`` and the smallest ``payload`` among the
     entries attaining it (the deterministic tie-break every engine shares).
@@ -74,7 +85,7 @@ def segment_max_with_payload(values, payload, segment_ids, num_segments: int):
     with no entries, or whose max is -inf, get (-inf, -1). Entries of
     value -inf can win nothing and are left out of both scatters (one host
     read for their count)."""
-    keep = (values != NEG).nonzero().squeeze(1)
+    keep = _finite_entries(values)
     values, payload = values[keep], payload[keep]
     seg = segment_ids[keep].long()
     seg_max = segment_reduce(values, seg, num_segments, "amax")
@@ -198,7 +209,7 @@ def segment_argmax_tie(values, tie, segment_ids, num_segments: int):
     (value, tie). Entries of value -inf can win nothing, so they are left
     out of both scatters instead of piling onto the caller's dump
     segment."""
-    keep = (values != NEG).nonzero().squeeze(1)
+    keep = _finite_entries(values)
     v, t = values[keep], tie[keep]
     seg = segment_ids[keep].long()
     key = (_order_key(v).to(torch.int64) << 32) | (

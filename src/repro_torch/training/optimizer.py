@@ -13,11 +13,10 @@ quantity is float32, as the JAX package computes it.
 
 The parameters are a mapping name -> tensor (a model's
 ``named_parameters()``, or a dict of tensors); the optimizer state holds
-``m`` and ``v`` under the same names. The JAX package's
-``abstract_opt_state`` and ``opt_specs`` describe the sharded state of
-the dry run, which is not ported yet (ROADMAP.md, Queue 1, the dry-run
-layer); a state on a shrunk grid is cut by ``runtime.elastic.
-reshard_state``.
+``m`` and ``v`` under the same names. ``abstract_opt_state`` is that
+state on the ``meta`` device and ``opt_specs`` its sharding (the step
+replicated, ``m`` and ``v`` as the parameters), for the dry run; a state
+on a shrunk grid is cut by ``runtime.elastic.reshard_state``.
 """
 from __future__ import annotations
 
@@ -62,6 +61,23 @@ def init_opt_state(params) -> OptState:
     return OptState(torch.zeros((), dtype=torch.int32, device=device),
                     {k: torch.zeros_like(p) for k, p in leaves.items()},
                     {k: torch.zeros_like(p) for k, p in leaves.items()})
+
+
+def abstract_opt_state(params) -> OptState:
+    """The ``OptState`` of ``params`` on the ``meta`` device: shapes and
+    dtypes, no storage."""
+    leaves = parameters(params)
+    return OptState(torch.empty((), dtype=torch.int32, device="meta"),
+                    {k: torch.empty_like(p, device="meta")
+                     for k, p in leaves.items()},
+                    {k: torch.empty_like(p, device="meta")
+                     for k, p in leaves.items()})
+
+
+def opt_specs(param_specs: dict) -> OptState:
+    """The specs of an ``OptState`` from the parameters' specs ({name:
+    spec tuple}): the step replicated, m and v as the parameters."""
+    return OptState((), dict(param_specs), dict(param_specs))
 
 
 def _f32(x, like: torch.Tensor) -> torch.Tensor:
