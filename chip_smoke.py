@@ -107,7 +107,13 @@ card, and prints what it measured:
      three suite matrices of n = 4,096 through "reference", "torch",
      "cuda", "cuda_persistent", "auto" and the 1x1 NCCL grid, every row
      certified by its dual, sound, perfect and identical to "reference";
-     the rows, the sweep and persistent kernels' launches and the worst
+     then the CLI (``python -m repro_torch.experiments``) with
+     ``--download`` over three synthetic stand-ins for the paper's
+     SuiteSparse instances (n = 4,096, Matrix Market files packed as the
+     collection packs them, served from a ``file://`` directory), and
+     again over the filled cache with that URL gone: every instance row
+     from "suitesparse" in the paper's metric, the two passes equal; the
+     rows, the sweep and persistent kernels' launches and the worst
      certified ratio bound;
   4. the sweep kernel alone against its plain version on a mid-AWAC state
      of the phase-2 instance, with the median time of each, its device
@@ -231,11 +237,13 @@ card, and prints what it measured:
      one step, and graphsage's host seconds to build the graph and
      sample. No hand-written kernel is on this path, and none may launch.
  15. [dryrun] the dry-run layer (``repro_torch.launch.dryrun``): the whole
-     dry run (``--all --mesh both``) in a child process, 84 records that
-     must all be ``ok``, with its host seconds and each cell's dominant
-     roofline term; then five cells that one card holds, each built by
-     ``launch.input_specs`` on a 1 x 1 mesh with ``attention_impl="cuda"``
-     for the LMs, traced on ``meta`` and then run on the card: qwen2-0.5b
+     dry run (``--all --mesh both``) in a child process started after the
+     build, so that it traces on the host beside the card's phases, 84
+     records that must all be ``ok``, with its host seconds and each
+     cell's dominant roofline term; then five cells that one card holds,
+     each built by ``launch.input_specs`` on a 1 x 1 mesh with
+     ``attention_impl="cuda"`` for the LMs, traced on ``meta`` and then
+     run on the card: qwen2-0.5b
      ``prefill_32k`` (32,768 tokens, batch cut from 32 to 1; K5 24 times)
      and ``train_4k`` (4,096 tokens, batch cut from 256 to 2; K5 48
      times, forward and remat), qwen2-7b ``decode_32k`` (a 32,768-token
@@ -254,12 +262,19 @@ Run from the root of a checkout on a machine with the card:
     python3 chip_smoke.py
 
 It needs one card and no network, and exits non-zero without a CUDA device
-or outside a checkout. The line before the last holds the per-kernel
-record as JSON; the last line is {"ok": true, "device": {...}}.
+or outside a checkout. Each phase ends with a ``[time] <phase> <seconds>``
+line. Device rows of a ``torch.profiler`` trace are summed from its raw
+events (``device_rows``): ``key_averages()`` on the traces of a hundred
+thousand launches took minutes. ``tools/stamp_lines.py`` stamps every line
+with the seconds since the start, to find where a run's time goes. The
+line before the last holds the per-kernel record as JSON; the last line
+is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import copy
 import ctypes
 import dataclasses
@@ -274,6 +289,9 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tarfile
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -309,6 +327,9 @@ from repro_torch.core import (  # noqa: E402
     solve,
 )
 from repro_torch.data import graphs as gnn_data  # noqa: E402
+from repro_torch.data import mtx as mtx_io  # noqa: E402
+from repro_torch.data import suitesparse  # noqa: E402
+from repro_torch.experiments import __main__ as paper_eval_cli  # noqa: E402
 from repro_torch.experiments import paper_eval  # noqa: E402
 from repro_torch.kernels import backend  # noqa: E402
 from repro_torch.kernels import dispatch as kdispatch  # noqa: E402
@@ -463,6 +484,12 @@ CARD = torch.device("cuda")
 DISPATCH = dict(reps=5, limit_s=20.0)
 # [paper_eval]: suite matrices at the order [resilient] certifies at
 PAPER_EVAL = {"fixtures": False, "synthetic_count": 3, "synthetic_n": 4096}
+# [paper_eval]'s third pass: synthetic stand-ins for the paper's SuiteSparse
+# instances (none is in the repository) at the same order, one of each
+# kind, written as Matrix Market files (the last one symmetric), packed as
+# the collection packs them under GROUP and fetched by the CLI's --download
+PAPER_STANDINS = dict(n=4096, avg_degree=8.0, seed=7, group="Synthetic",
+                      kinds=("circuit", "powerlaw", "banded"))
 # [train]: qwen2-0.5b at full size, bf16 compute, the launcher's AdamW
 # settings; then bert4rec at full width
 TRAIN = dict(batch=4, seq=2048, steps=5, lr=1e-3, seed=0, rec_batch=4,
@@ -548,10 +575,30 @@ def host_ms(fn, reps: int = 21) -> float:
     return statistics.median(times)
 
 
+DeviceRow = collections.namedtuple("DeviceRow", "key count us")
+
+
+def device_rows(prof) -> list[DeviceRow]:
+    """A trace's device activity (kernels, copies, memsets) by name, with
+    its launches and device microseconds: the rows of device type CUDA
+    that ``prof.key_averages()`` gives, summed from the raw events.
+    ``key_averages()`` first builds a Python event object for every
+    operator and launch of the trace, which for the traces of a hundred
+    thousand launches here (a MoE decode step, the solver's sweeps) took
+    longer than everything else in their phases."""
+    rows = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA or getattr(
+                e, "is_hidden_event", lambda: False)():
+            continue
+        count, us = rows.get(e.name(), (0, 0.0))
+        rows[e.name()] = (count + 1, us + (e.end_ns() - e.start_ns()) / 1e3)
+    return [DeviceRow(k, count, us) for k, (count, us) in rows.items()]
+
+
 def dev_us(e) -> float:
-    """Device time (us) of a ``key_averages()`` row of device kernels."""
-    return getattr(e, "self_device_time_total", None) or getattr(
-        e, "self_cuda_time_total", 0.0)
+    """Device time (us) of a ``device_rows`` row."""
+    return e.us
 
 
 def graph_ms(fn, calls: int = 20) -> float:
@@ -725,11 +772,10 @@ def launch_split(fn, calls: int = 20) -> dict[str, float]:
             fn()
         sync()
     out = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.key.replace("(anonymous namespace)::", "")
-            name = name.split("(")[0].strip() or name
-            out[name] = out.get(name, 0.0) + dev_us(e) / 1e3 / calls
+    for e in device_rows(prof):
+        name = e.key.replace("(anonymous namespace)::", "")
+        name = name.split("(")[0].strip() or name
+        out[name] = out.get(name, 0.0) + dev_us(e) / 1e3 / calls
     return out
 
 
@@ -776,8 +822,7 @@ def profiled(fn, label: str, watch: tuple[str, ...] = ()) -> dict:
         _, t = wall(fn)
     # the rows of device kernels only: an operator's row repeats the
     # device time of the kernels it launched
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = device_rows(prof)
     busy_us = sum(dev_us(e) for e in rows)
     require(busy_us > 0, f"[profile] {label}: no device time recorded")
     top = sorted(rows, key=dev_us, reverse=True)[:12]
@@ -1798,8 +1843,7 @@ def solver_at_scale(card, kernels) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         lu_solve_once(factor, sb)
         sync()
-    ops = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = device_rows(prof)
     n_ops = sum(e.count for e in ops)
     dev_s = sum(dev_us(e) for e in ops) / 1e6
     cpu, t_cpu = wall(lambda: solve_linear_system((row, col, val, n), b,
@@ -2996,7 +3040,8 @@ def phase_paper_eval(log, kernels):
     n = 96) and three suite matrices of n = 4,096, through the four local
     backends, "auto" and the 1x1 NCCL grid; every row certified, sound,
     perfect and identical to "reference" (``run_eval`` raises
-    otherwise)."""
+    otherwise). Then the CLI over the paper's instances' stand-ins
+    (:func:`paper_instances`)."""
     card = log["card"]
     (small, t, k) = launched(lambda: paper_eval.run_eval(
         paper_eval.DEFAULT_SPEC))
@@ -3030,9 +3075,123 @@ def phase_paper_eval(log, kernels):
           f"certified optimal; worst certified ratio bound {worst:.4f} "
           f"({worst_row.name}); K1 launches {launches['awac_sweep']}, K2 "
           f"{launches['awac_persistent']} ({card})")
+    instances = paper_instances(card, kernels)
     log["paper_eval"] = dict(wall_s=[t, t_l], launches=launches,
                              worst_ratio_bound=worst,
-                             records=[dataclasses.asdict(r) for r in rows])
+                             records=[dataclasses.asdict(r) for r in rows],
+                             instances=instances)
+
+
+def write_standins(serve: pathlib.Path) -> list[str]:
+    """``PAPER_STANDINS`` as the collection serves its instances:
+    ``<serve>/<group>/<name>.tar.gz`` holding ``<name>/<name>.mtx``. Real
+    general files, the last one real symmetric (its lower triangle, the
+    planted matching kept in both orientations). Returns the names."""
+    cfg = PAPER_STANDINS
+    n, group = cfg["n"], cfg["group"]
+    (serve / group).mkdir(parents=True)
+    names = []
+    for i, kind in enumerate(cfg["kinds"]):
+        g = graph.generate(n, avg_degree=cfg["avg_degree"], kind=kind,
+                           seed=cfg["seed"] + i)
+        row, col = g.row[:g.nnz].astype(np.int64), g.col[:g.nnz]
+        val = g.val[:g.nnz].astype(np.float64)
+        symmetric = i == len(cfg["kinds"]) - 1
+        name = f"standin_{kind}_n{n}" + ("_sym" if symmetric else "")
+        if symmetric:
+            lo, hi = np.maximum(row, col), np.minimum(row, col)
+            _, keep = np.unique(lo * n + hi, return_index=True)
+            row, col, val = lo[keep], hi[keep], val[keep]
+        path = serve / f"{name}.mtx"
+        mtx_io.write_mtx(path, row, col, val, shape=(n, n),
+                         symmetry="symmetric" if symmetric else "general",
+                         comment=f"synthetic stand-in ({kind}, seed "
+                                 f"{cfg['seed'] + i}), not a SuiteSparse "
+                                 f"instance")
+        with tarfile.open(serve / group / f"{name}.tar.gz", "w:gz") as tf:
+            tf.add(path, arcname=f"{name}/{name}.mtx")
+        names.append(name)
+    return names
+
+
+def paper_instances(card: str, kernels: dict) -> dict:
+    """[paper_eval]'s third pass, as a user runs the paper's instances:
+    ``python -m repro_torch.experiments --download --instances ...
+    --cache-dir ...`` over ``PAPER_STANDINS`` served from a ``file://``
+    directory, then again over the filled cache with the URL gone. Every
+    stand-in row must come from "suitesparse" in the paper's metric,
+    perfect, sound, identical to "reference" and on the card, "auto" as
+    the table says; the passes must agree and launch K1 and K2."""
+    work = ROOT / "build" / "paper-instances"
+    shutil.rmtree(work, ignore_errors=True)
+    names = write_standins(work / "serve")
+    group = PAPER_STANDINS["group"]
+    argv = ["--download", "--instances",
+            ",".join(f"{group}/{name}" for name in names),
+            "--cache-dir", str(work / "cache"), "--suite-count", "0",
+            "--no-persist"]
+    base = suitesparse.BASE_URL
+    passes, launches = [], {"awac_sweep": 0, "awac_persistent": 0}
+    t0 = time.perf_counter()
+    try:
+        for url in (work / "serve", work / "gone"):
+            suitesparse.BASE_URL = f"file://{url}"
+            (rows, t, k) = launched(lambda: paper_eval_cli.main(argv))
+            passes.append((rows, t))
+            for name in launches:
+                launches[name] += k[name]
+    finally:
+        suitesparse.BASE_URL = base
+    t_phase = time.perf_counter() - t0
+    (rows, t), (again, t_again) = passes
+    engines = set(paper_eval.DEFAULT_BACKENDS) | {"grid1x1"}
+    mine = [r for r in rows if r.name in names]
+    require(len(mine) == len(names) * len(engines)
+            and {r.engine for r in mine} == engines,
+            f"[paper_eval] stand-in rows {[(r.name, r.engine) for r in mine]}")
+    require({r.source for r in rows if r.name not in names} == {"fixture"},
+            "[paper_eval] a row that is no stand-in is no fixture")
+    for r in rows:
+        require(r.perfect and r.certified_sound and r.identical_to_reference
+                and torch.device(r.device).type == CARD.type,
+                f"[paper_eval] {r.name} [{r.engine}] {r}")
+        if r.engine == "auto":
+            require((r.backend, r.dispatch) == (auto_backend(r.n), "table"),
+                    f"[paper_eval] {r.name}: auto ran {r.backend} "
+                    f"({r.dispatch})")
+    for r in mine:
+        require(r.source == "suitesparse"
+                and r.transform == "log2_scaled_nonneg"
+                and r.n == PAPER_STANDINS["n"],
+                f"[paper_eval] {r.name} [{r.engine}]: {r.source}, "
+                f"{r.transform}, n = {r.n}")
+    untimed = [[{k: v for k, v in dataclasses.asdict(r).items()
+                 if k != "wall_s"} for r in p] for p in (rows, again)]
+    require(untimed[0] == untimed[1],
+            "[paper_eval] the filled cache's pass differs from the download's")
+    require(launches["awac_sweep"] >= 1 and launches["awac_persistent"] >= 1,
+            f"[paper_eval] stand-in launches {launches}")
+    kernels["awac_sweep"]["launches"] += launches["awac_sweep"]
+    kernels["awac_persistent"]["launches"] += launches["awac_persistent"]
+    nnz = {r.name: r.nnz for r in mine}
+    for name in names:
+        print(f"[paper_eval] {name} (nnz {nnz[name]}), ms a later call, "
+              f"download / cache pass: " + ", ".join(
+                  f"{r.engine} {r.wall_s * 1e3:.3f} / {a.wall_s * 1e3:.3f}"
+                  for r, a in zip(rows, again) if r.name == name))
+    bounds = [r.ratio_bound for r in mine if r.ratio_bound is not None]
+    print(f"[paper_eval] --download of {len(names)} synthetic stand-ins "
+          f"(not SuiteSparse instances; n = {PAPER_STANDINS['n']}) from "
+          f"file:// tarballs, then from the filled cache with the URL gone: "
+          f"{len(rows)} rows a pass ({len(mine)} of the stand-ins, source "
+          f"\"suitesparse\", log2_scaled_nonneg), passes equal; "
+          f"{t:.1f} s and {t_again:.1f} s, phase {t_phase:.1f} s; worst "
+          f"certified ratio bound {min(bounds):.4f}; K1 launches "
+          f"{launches['awac_sweep']}, K2 {launches['awac_persistent']} "
+          f"({card})")
+    return dict(names=names, wall_s=[t, t_again], phase_s=t_phase,
+                launches=launches,
+                records=[dataclasses.asdict(r) for r in mine])
 
 
 def grad_margin(got: dict, want: dict) -> tuple[float, str]:
@@ -3468,25 +3627,45 @@ def phase_gnn(log):
 
 def dryrun_start():
     """The whole dry run (``--all --mesh both``) started in a child
-    process, which runs on the host while the cells run on the card."""
+    process, which traces on the host beside the card's phases. Its output
+    goes to unnamed temporary files, so a full pipe never stalls it; a
+    thread notes when it ends."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    return subprocess.Popen(
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-         "--mesh", "both"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True), time.perf_counter()
+         "--mesh", "both"], cwd=ROOT, env=env, stdout=out, stderr=err,
+        text=True)
+    ended = []
+    threading.Thread(target=lambda: (proc.wait(),
+                                     ended.append(time.perf_counter())),
+                     daemon=True).start()
+    return dict(proc=proc, t0=t0, ended=ended, out=out, err=err)
+
+
+def dryrun_stop(started) -> None:
+    """Kill the dry-run child if it still runs, and close its files."""
+    proc = started["proc"]
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait()
+    started["out"].close()
+    started["err"].close()
 
 
 def dryrun_finish(log, started) -> None:
     """Wait for the whole dry run; its 84 records must all be ok."""
     card = log["card"]
-    proc, t0 = started
-    try:
-        stdout, stderr = proc.communicate(timeout=DRYRUN["timeout_s"])
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.communicate()
-    host_s = time.perf_counter() - t0
+    proc = started["proc"]
+    t_wait = time.perf_counter()
+    proc.wait(timeout=DRYRUN["timeout_s"])
+    waited_s = time.perf_counter() - t_wait
+    host_s = (started["ended"][0] if started["ended"]
+              else time.perf_counter()) - started["t0"]
+    started["out"].seek(0)
+    started["err"].seek(0)
+    stdout, stderr = started["out"].read(), started["err"].read()
     require(proc.returncode == 0, f"[dryrun] --all failed "
             f"(rc {proc.returncode}): {stdout[-2000:]}{stderr[-2000:]}")
     recs = {}
@@ -3499,7 +3678,8 @@ def dryrun_finish(log, started) -> None:
     require(len(recs) == 84 and ok == 84,
             f"[dryrun] {ok} of {len(recs)} records ok, not 84 of 84")
     print(f"[dryrun] --all --mesh both: {ok}/{len(recs)} records ok, "
-          f"{host_s:.1f} s of host time beside the cells ({card})")
+          f"{host_s:.1f} s of host time beside the card's phases, "
+          f"{waited_s:.1f} s waited for at the end ({card})")
     rows = {}
     for r in recs.values():
         rl = r["roofline"]
@@ -3510,6 +3690,7 @@ def dryrun_finish(log, started) -> None:
         print(f"[dryrun] {arch} {shape}: single {by_mesh['single']}, "
               f"multi {by_mesh['multi']}")
     log["dryrun"]["all"] = dict(records=len(recs), ok=ok, host_s=host_s,
+                                waited_s=waited_s,
                                 dominant={f"{a} {s}": v for (a, s), v
                                           in rows.items()})
 
@@ -3579,23 +3760,27 @@ def dryrun_cell(arch, shape_name, cut, k5, card) -> dict:
     return res
 
 
-def phase_dryrun(log):
-    """[dryrun] the dry-run layer; see the module docstring, 15."""
+def phase_dryrun(log, started):
+    """[dryrun] the dry-run layer; see the module docstring, 15. The
+    child ``started`` was started after the build."""
     card = log["card"]
     out = log["dryrun"] = {}
     t0 = time.perf_counter()
-    started = dryrun_start()
-    try:
-        for arch, shape_name, cut, k5 in DRYRUN["cells"]:
-            out[f"{arch} {shape_name}"] = dryrun_cell(arch, shape_name, cut,
-                                                      k5, card)
-    except BaseException:
-        started[0].kill()
-        started[0].communicate()
-        raise
+    for arch, shape_name, cut, k5 in DRYRUN["cells"]:
+        out[f"{arch} {shape_name}"] = dryrun_cell(arch, shape_name, cut,
+                                                  k5, card)
     dryrun_finish(log, started)
     out["phase_s"] = time.perf_counter() - t0
     print(f"[dryrun] phase {out['phase_s']:.1f} s ({card})")
+
+
+@contextlib.contextmanager
+def clock(log, name: str):
+    """Time one phase into ``log["phase_s"]`` and print it."""
+    t0 = time.perf_counter()
+    yield
+    dt = log.setdefault("phase_s", {})[name] = time.perf_counter() - t0
+    print(f"[time] {name} {dt:.1f} s", flush=True)
 
 
 def main(argv=None) -> int:
@@ -3640,39 +3825,68 @@ def main(argv=None) -> int:
     }
     log = {}
     t0 = time.perf_counter()
-    phase_build(log)
-    single_run = phase_single(log, kernels)
-    batch_run = phase_batch(log, kernels)
-    phase_dispatch(log, single_run, batch_run)
-    grid = phase_grid(log, kernels, single_run, batch_run)
-    plain_stream = phase_serve(log, kernels, grid)
-    phase_resilient(log, kernels, grid, single_run, batch_run)
-    phase_chaos(log, kernels)
-    phase_serve_resilient(log, kernels, plain_stream)
-    phase_solver(log, kernels)
-    phase_paper_eval(log, kernels)
-    tdist.destroy_process_group()
-    del batch_run
-    phase_sweep(log, kernels, single_run)
-    phase_profile(log, single_run[0])
-    phase_quality(log)
-    phase_lm(log, kernels)
-    phase_flash(log, kernels)
-    del single_run
-    free_card()
-    model, seqs = phase_recsys(log)
-    phase_embedding_bag(log, kernels, model, seqs)
-    del model, seqs
-    free_card()
-    phase_cycle_gain(log, kernels)
-    swap_inputs = phase_moe(log, kernels)  # frees the card first: 57 GB
-    phase_router_swap(log, kernels, swap_inputs)
-    del swap_inputs
-    free_card()
-    phase_dense_lm(log, kernels)
-    phase_train(log, kernels)
-    phase_gnn(log)
-    phase_dryrun(log)
+    with clock(log, "build"):
+        phase_build(log)
+    dry_child = dryrun_start()  # host-only: runs beside every later phase
+    try:
+        with clock(log, "single"):
+            single_run = phase_single(log, kernels)
+        with clock(log, "batch"):
+            batch_run = phase_batch(log, kernels)
+        with clock(log, "dispatch"):
+            phase_dispatch(log, single_run, batch_run)
+        with clock(log, "grid"):
+            grid = phase_grid(log, kernels, single_run, batch_run)
+        with clock(log, "serve"):
+            plain_stream = phase_serve(log, kernels, grid)
+        with clock(log, "resilient"):
+            phase_resilient(log, kernels, grid, single_run, batch_run)
+        with clock(log, "chaos"):
+            phase_chaos(log, kernels)
+        with clock(log, "serve_resilient"):
+            phase_serve_resilient(log, kernels, plain_stream)
+        with clock(log, "solver"):
+            phase_solver(log, kernels)
+        with clock(log, "paper_eval"):
+            phase_paper_eval(log, kernels)
+        tdist.destroy_process_group()
+        del batch_run
+        with clock(log, "sweep"):
+            phase_sweep(log, kernels, single_run)
+        with clock(log, "profile"):
+            phase_profile(log, single_run[0])
+        with clock(log, "quality"):
+            phase_quality(log)
+        with clock(log, "lm"):
+            phase_lm(log, kernels)
+        with clock(log, "flash"):
+            phase_flash(log, kernels)
+        del single_run
+        free_card()
+        with clock(log, "recsys"):
+            model, seqs = phase_recsys(log)
+        with clock(log, "embedding_bag"):
+            phase_embedding_bag(log, kernels, model, seqs)
+        del model, seqs
+        free_card()
+        with clock(log, "cycle_gain"):
+            phase_cycle_gain(log, kernels)
+        with clock(log, "moe"):
+            swap_inputs = phase_moe(log, kernels)  # frees the card: 57 GB
+        with clock(log, "router_swap"):
+            phase_router_swap(log, kernels, swap_inputs)
+        del swap_inputs
+        free_card()
+        with clock(log, "dense_lm"):
+            phase_dense_lm(log, kernels)
+        with clock(log, "train"):
+            phase_train(log, kernels)
+        with clock(log, "gnn"):
+            phase_gnn(log)
+        with clock(log, "dryrun"):
+            phase_dryrun(log, dry_child)
+    finally:
+        dryrun_stop(dry_child)
     log["total_s"] = time.perf_counter() - t0
     print(f"[done] {log['total_s']:.1f} s; card {log['card']}")
     if args.out is not None:

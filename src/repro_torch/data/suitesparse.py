@@ -6,8 +6,11 @@ The paper evaluates AWPM on SuiteSparse instances (Table 6.2-style circuit
 small synthetic stand-ins so CI never touches the network. This module is
 the explicit escape hatch: :func:`fetch` and :func:`fetch_paper_instances`
 put the named instances into a local cache, whose ``.mtx`` files
-``experiments.paper_eval`` sweeps like any other case. No runner calls
-it: nothing downloads unless a user asks for it.
+``experiments.paper_eval`` sweeps like any other case (its spec's
+``extra_mtx``). The runner calls it only under ``python -m
+repro_torch.experiments --download``: nothing downloads unless a user
+asks for it, and an instance already in the cache is served from there
+with no network.
 
 Design constraints, in order:
 

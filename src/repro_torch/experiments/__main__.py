@@ -1,21 +1,33 @@
 """The paper-evaluation runner (the counterpart of the JAX package's
-``experiments/run_paper_eval.py``): sweep the Matrix Market fixtures and
-the synthetic suite through the local backends, "auto" and the process
-grids via the ``solve()``/``Matcher`` facade; certify every result with
-LP-dual potentials; fail on an unsound bound, a backend that disagrees
-with "reference", or an imperfect matching.
+``experiments/run_paper_eval.py``): sweep the Matrix Market fixtures,
+the paper's SuiteSparse instances (with ``--download``) and the synthetic
+suite through the local backends, "auto" and the process grids via the
+``solve()``/``Matcher`` facade; certify every result with LP-dual
+potentials; fail on an unsound bound, a backend that disagrees with
+"reference", or an imperfect matching.
 
     python -m repro_torch.experiments [--device cpu] [--quick]
         [--backends reference,torch,cuda,cuda_persistent,auto]
         [--grids 1x1,2x2] [--suite-count 10] [--suite-n 96]
         [--transform log2_scaled_nonneg] [--oracle-max-n 256]
         [--no-persist] [--out-dir DIR]
+        [--download [--instances Freescale1,rajat31] [--cache-dir DIR]]
 
 Without ``--device`` it runs on the card and fails without one; on the
 card it runs the 1x1 grid (one NCCL rank), on the CPU the 1x1 grid in
 this process and larger grids as spawned gloo ranks. ``--quick``:
 fixtures and 3 small synthetic matrices, "reference" and "torch", the 1x1
 grid. Outputs: ``results/torch/paper_eval.md`` and ``.json``.
+
+``--download`` puts the named instances (default: the whole registry of
+``data.suitesparse.PAPER_INSTANCES``; ``--instances`` takes registry
+names or ``Group/name`` specs) into the cache (``--cache-dir``, else
+``$REPRO_SUITESPARSE_CACHE`` or ``~/.cache/repro-suitesparse``) and
+sweeps them beside the fixtures, in the paper's metric. An instance
+whose ``<cache>/<Group>/<name>/<name>.mtx`` is already there, or whose
+``<cache>/<Group>/<name>.tar.gz`` is, needs no network: to run the
+paper's instances offline, put their files there first. Without
+``--download`` nothing touches the network.
 """
 from __future__ import annotations
 
@@ -39,7 +51,9 @@ def _parse_grids(text: str):
     return grids
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> list:
+    """Run the sweep of ``argv``'s flags; print its table and return its
+    records."""
     ap = argparse.ArgumentParser(
         description="AWPM quality evaluation in the paper's metric")
     ap.add_argument("--device", default=None,
@@ -67,6 +81,17 @@ def main(argv=None) -> None:
                     help="write no output files")
     ap.add_argument("--out-dir", default=None,
                     help="where the outputs go (default results/torch/)")
+    ap.add_argument("--download", action="store_true",
+                    help="opt-in network: fetch SuiteSparse instances "
+                         "(sha256-pinned cache) and sweep them too; a "
+                         "filled cache needs no network")
+    ap.add_argument("--instances", default=None,
+                    help="with --download: comma list of registry names or "
+                         "Group/name specs (default: the paper registry)")
+    ap.add_argument("--cache-dir", default=None,
+                    help="SuiteSparse cache dir (default: "
+                         "$REPRO_SUITESPARSE_CACHE or "
+                         "~/.cache/repro-suitesparse)")
     args = ap.parse_args(argv)
 
     spec = dict(paper_eval.QUICK_SPEC if args.quick
@@ -77,6 +102,18 @@ def main(argv=None) -> None:
         spec["synthetic_n"] = args.suite_n
     if args.transform is not None:
         spec["synthetic_transform"] = args.transform
+    if args.instances and not args.download:
+        raise SystemExit("--instances needs --download (no implicit network)")
+    if args.download:
+        from repro_torch.data import suitesparse
+
+        names = ([t.strip() for t in args.instances.split(",") if t.strip()]
+                 if args.instances else None)
+        fetched = suitesparse.fetch_paper_instances(names,
+                                                    cache=args.cache_dir)
+        spec["extra_mtx"] = sorted(str(p) for p in fetched.values())
+        print(f"# suitesparse: {len(fetched)} instance(s) cached under "
+              f"{suitesparse.cache_dir(args.cache_dir)}")
     backends = (args.backends.split(",") if args.backends
                 else (["reference", "torch"] if args.quick
                       else list(paper_eval.DEFAULT_BACKENDS)))
@@ -102,6 +139,7 @@ def main(argv=None) -> None:
             records, wall, out_dir=args.out_dir, quick=args.quick,
             device=device)
         print(f"# wrote {table} and {bench} ({len(records)} rows)")
+    return records
 
 
 if __name__ == "__main__":

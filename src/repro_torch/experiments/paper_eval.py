@@ -6,8 +6,10 @@ optimum" on SuiteSparse instances under MC64 log-scaled weights. This
 module is that experiment's harness:
 
   - cases: the Matrix Market fixtures in ``tests/data/`` (loaded through
-    ``data.mtx`` with a weight transform per fixture) and instances of the
-    synthetic ``core.graph.matrix_suite``;
+    ``data.mtx`` with a weight transform per fixture), out-of-tree ``.mtx``
+    files (the spec's ``extra_mtx``: the paper's SuiteSparse instances,
+    which ``data.suitesparse`` fetches into its cache) and instances of
+    the synthetic ``core.graph.matrix_suite``;
   - sweep: every case through the ``solve()``/``Matcher`` facade with the
     local backends ("reference", "torch", "cuda", "cuda_persistent"),
     ``"auto"`` (which records how it was resolved) and the process grids:
@@ -27,8 +29,8 @@ It runs on the card (``device=None``) and raises without one unless it is
 given ``device="cpu"``. Outputs: a markdown table and a JSON record under
 ``results/torch/`` (the JAX runner's ``results/paper_eval.md`` and
 ``BENCH_paper_eval.json`` are its own). The cases are files on disk;
-``data.suitesparse.fetch`` puts the paper's SuiteSparse instances there
-on request, and nothing here downloads.
+nothing here downloads (the CLI's ``--download`` does, through
+``data.suitesparse``, before the sweep).
 """
 from __future__ import annotations
 
@@ -78,7 +80,7 @@ class EvalCase:
 
     name: str
     problem: object  # MatchingProblem, single instance
-    source: str  # "fixture" | "synthetic"
+    source: str  # "fixture" | "suitesparse" | "synthetic"
     transform: str  # weight metric label for the table
     nnz: int
 
@@ -123,6 +125,24 @@ def fixture_cases(fixture_dir=None, device=None) -> list[EvalCase]:
             transform=transform or "pattern", nnz=coo.nnz))
     if not cases:
         raise FileNotFoundError(f"no .mtx fixtures under {fixture_dir}")
+    return cases
+
+
+def extra_mtx_cases(paths, device=None) -> list[EvalCase]:
+    """Cases for out-of-tree ``.mtx`` files (the SuiteSparse instances that
+    ``--download`` fetched or found in its cache). Unknown stems get the
+    paper metric (``log2_scaled_nonneg``): these are the paper's
+    instances."""
+    from repro_torch.data.mtx import load_problem
+
+    cases = []
+    for p in paths:
+        path = pathlib.Path(p)
+        transform = FIXTURE_TRANSFORMS.get(path.stem, "log2_scaled_nonneg")
+        problem, coo = load_problem(path, transform=transform, device=device)
+        cases.append(EvalCase(
+            name=path.stem, problem=problem, source="suitesparse",
+            transform=transform or "pattern", nnz=coo.nnz))
     return cases
 
 
@@ -257,6 +277,8 @@ def _cases_from_spec(spec: dict, device=None) -> list[EvalCase]:
     cases = []
     if spec.get("fixtures", True):
         cases += fixture_cases(spec.get("fixture_dir"), device=device)
+    if spec.get("extra_mtx"):
+        cases += extra_mtx_cases(spec["extra_mtx"], device=device)
     if spec.get("synthetic_count", 0):
         cases += synthetic_cases(spec["synthetic_count"],
                                  spec.get("synthetic_n", 96),

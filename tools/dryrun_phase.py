@@ -44,7 +44,11 @@ def main(argv=None) -> int:
     log = {"card": card}
     t0 = time.perf_counter()
     chip_smoke.backend.library()
-    chip_smoke.phase_dryrun(log)
+    started = chip_smoke.dryrun_start()
+    try:
+        chip_smoke.phase_dryrun(log, started)
+    finally:
+        chip_smoke.dryrun_stop(started)
     print(f"[dryrun] {time.perf_counter() - t0:.1f} s ({card})")
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
