@@ -1,0 +1,103 @@
+"""A whole run of each cell on the CPU at a small size, the look for a
+card skipped: sound, it comes out correct; with the timed path broken
+underneath, it comes out not correct."""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import pytest
+import torch
+
+from bench import harness
+from bench.test_bench_reference import CELLS, small_config
+from repro_torch.core import api, batch, single
+
+CPU = torch.device("cpu")
+SECONDS = 0.3
+
+
+def run(cell: str, seed: int = 5, traced: bool = False):
+    result, _ = harness.run_cell(harness.load_spec(), cell, seed, SECONDS,
+                                 traced, CPU, time.perf_counter(),
+                                 config=small_config(CELLS[cell]))
+    return result
+
+
+def unchanged_state(monkeypatch):
+    """Each engine hands back the state of its first call (a set-up call)
+    on every later call: the step leaves its state unchanged."""
+    for module, name in ((single, "_awpm"),
+                         (batch, "_awpm_batched_from_state")):
+        real, held = getattr(module, name), []
+
+        def engine(*args, _real=real, _held=held, **kwargs):
+            if not _held:
+                _held.append(_real(*args, **kwargs))
+            return _held[0]
+
+        monkeypatch.setattr(module, name, engine)
+
+
+def altered_answer(monkeypatch):
+    """The answer swaps two columns' rows where it is produced."""
+    real = api._result
+
+    def result(state, iters, n, batched):
+        out = real(state, iters, n, batched)
+        mr, mc = out.mate_row.clone(), out.mate_col.clone()
+        i, j = mr[..., 0].clone(), mr[..., 1].clone()
+        mr[..., 0], mr[..., 1] = j, i
+        return dataclasses.replace(out, mate_row=mr, mate_col=mc)
+
+    monkeypatch.setattr(api, "_result", result)
+
+
+@pytest.mark.parametrize("cell", list(CELLS))
+@pytest.mark.parametrize("traced", [False, True])
+def test_a_sound_run_is_correct(cell, traced):
+    result = run(cell, traced=traced)
+    assert result["correct"] and result["failed"] == 0
+    assert result["attempted"] >= 1
+    assert list(result)[-1] == "checks"
+    want = {"solve_ms", "setup_s"} if not traced else (
+        {"preflight_ms", "awac_ms", "awac_rounds"}
+        | ({"greedy_ms", "mcm_ms"} if cell.endswith("cold")
+           else {"warm_state_ms"}))
+    assert set(result["metrics"]) == want
+    if traced:
+        assert set(result["breakdown"]) == {"device_ops", "idle_gaps"}
+
+
+FAULTS = [(c, f) for f in (altered_answer, unchanged_state) for c in CELLS]
+
+
+@pytest.mark.parametrize("cell,fault", FAULTS,
+                         ids=[f"{f.__name__}-{c}" for c, f in FAULTS])
+def test_a_broken_path_is_not_correct(cell, fault, monkeypatch):
+    fault(monkeypatch)
+    result = run(cell)
+    assert not result["correct"]
+    assert result["failed"] > 0 or any(
+        v["value"] > v["limit"] for v in result["checks"].values())
+
+
+@pytest.mark.parametrize("cell", ["powerlaw_2m7.cold", "uniform_1m5.cold"])
+def test_calls_that_raise_are_failed(cell, monkeypatch):
+    spec = harness.load_spec()
+    cfg = small_config(CELLS[cell])
+    real = single._awpm
+    calls = {"n": 0}
+
+    def engine(*args, **kwargs):  # the warm-up call passes, then all raise
+        calls["n"] += 1
+        if calls["n"] > 1:
+            raise RuntimeError("broken engine")
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(single, "_awpm", engine)
+    result, tally = harness.run_cell(spec, cell, 5, SECONDS, False, CPU,
+                                     time.perf_counter(), config=cfg)
+    assert not result["correct"]
+    assert result["failed"] == result["attempted"] >= 1
+    assert "solve_ms" not in result["metrics"]
