@@ -31,6 +31,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import batch as _batch
 from repro_torch.core import dist as _dist
 from repro_torch.core import graph as _graph
@@ -415,23 +416,25 @@ def _apply_preflight(problem: MatchingProblem, options: SolveOptions):
     """Host-side input screening per ``options.on_invalid``. Returns the
     (possibly sanitized) problem and the report to carry into
     :func:`_finish`."""
-    report = _preflight.preflight(problem)
-    if report.fatal:
-        if options.on_invalid == "raise":
-            raise _preflight.PreflightError(
+    with obs.span("preflight"):
+        report = _preflight.preflight(problem)
+        if report.fatal:
+            if options.on_invalid == "raise":
+                raise _preflight.PreflightError(
+                    report,
+                    f"preflight rejected the problem: {report.summary()}. "
+                    f"Pass SolveOptions(on_invalid='sanitize') to repair, or "
+                    f"'degrade' to also accept infeasible instances.")
+            problem, report = _preflight.sanitize(problem)
+        if report.structural and options.on_invalid == "raise":
+            # empty rows/columns make a perfect matching impossible — under
+            # the strict policy that is an error, known before solving
+            raise _preflight.InfeasibleProblemError(
                 report,
-                f"preflight rejected the problem: {report.summary()}. Pass "
-                f"SolveOptions(on_invalid='sanitize') to repair, or "
-                f"'degrade' to also accept infeasible instances.")
-        problem, report = _preflight.sanitize(problem)
-    if report.structural and options.on_invalid == "raise":
-        # empty rows/columns make a perfect matching impossible — under the
-        # strict policy that is an error, and it is known before solving
-        raise _preflight.InfeasibleProblemError(
-            report,
-            f"problem has no perfect matching: {report.summary()}. Pass "
-            f"SolveOptions(on_invalid='degrade') for the maximal matching.")
-    return problem, report
+                f"problem has no perfect matching: {report.summary()}. Pass "
+                f"SolveOptions(on_invalid='degrade') for the maximal "
+                f"matching.")
+        return problem, report
 
 
 def _finish(problem: MatchingProblem, result: MatchResult,
@@ -439,18 +442,20 @@ def _finish(problem: MatchingProblem, result: MatchResult,
     """Post-solve policy: attach the preflight diagnosis, and on an
     imperfect result either raise (raise/sanitize policies) or return the
     degraded matching with the deficiency folded into the diagnosis."""
-    if bool(result.perfect.all()):
-        if report is not None and report.issues:
-            return dataclasses.replace(result, diagnosis=report)
-        return result
-    report = _preflight.deficiency_from_mates(
-        result.mate_row, problem.n, report, batched=problem.is_batched)
-    if options.on_invalid != "degrade":
-        raise _preflight.InfeasibleProblemError(
-            report,
-            f"problem has no perfect matching: {report.summary()}. Pass "
-            f"SolveOptions(on_invalid='degrade') for the maximal matching.")
-    return dataclasses.replace(result, diagnosis=report)
+    with obs.span("finish"):
+        if obs.flag(result.perfect.all(), "finish"):
+            if report is not None and report.issues:
+                return dataclasses.replace(result, diagnosis=report)
+            return result
+        report = _preflight.deficiency_from_mates(
+            result.mate_row, problem.n, report, batched=problem.is_batched)
+        if options.on_invalid != "degrade":
+            raise _preflight.InfeasibleProblemError(
+                report,
+                f"problem has no perfect matching: {report.summary()}. Pass "
+                f"SolveOptions(on_invalid='degrade') for the maximal "
+                f"matching.")
+        return dataclasses.replace(result, diagnosis=report)
 
 
 def _execution(problem: MatchingProblem, backend: str, source: str,
@@ -523,7 +528,14 @@ def solve(problem: MatchingProblem, options: SolveOptions | None = None, *,
     current edge list, a bounded MCM top-up closes the seed's deficiency
     and AWAC runs from there. The result is still a matching of this
     problem, and a seed that is already an AWAC fixed point of it comes
-    back bit-identical."""
+    back bit-identical. Each call is one call of the tracer
+    (``repro_torch.obs``): its root span ``solve``."""
+    with obs.span("solve"):
+        return _solve(problem, options, warm_start)
+
+
+def _solve(problem: MatchingProblem, options: SolveOptions | None,
+           warm_start) -> MatchResult:
     options = SolveOptions() if options is None else options
     _check_types(problem, options)
     warm = None if warm_start is None else _warm_mates(problem, warm_start)
@@ -561,6 +573,12 @@ def solve(problem: MatchingProblem, options: SolveOptions | None = None, *,
     return _finish(problem, result, options, report)
 
 
+def _host_copy(x: torch.Tensor) -> np.ndarray:
+    """A numpy copy of ``x``: one read of the device."""
+    with obs.d2h("grid"):
+        return x.cpu().numpy()
+
+
 def _solve_dist(problem: MatchingProblem, options: SolveOptions,
                 driver=None, warm=None) -> MatchResult:
     """Grid dispatch: the distributed-batched engine on ``options.grid``,
@@ -583,7 +601,7 @@ def _solve_dist(problem: MatchingProblem, options: SolveOptions,
                 edges[0], problem.n),
             _batch._resolve_window_steps_batched(edges[0], problem.n,
                                                  options.window_steps))
-    row, col, val = (x.cpu().numpy() for x in
+    row, col, val = (_host_copy(x) for x in
                      (problem.row, problem.col, problem.val))
     batched = problem.is_batched
     if not batched:
@@ -598,7 +616,8 @@ def _solve_dist(problem: MatchingProblem, options: SolveOptions,
     state, iters, aux = driver.run(row, col, val, state=state0)
     # with exchange_check the engine sums a [dropped, integrity] pair;
     # otherwise aux is the plain global dropped counter
-    aux = aux.reshape(-1).tolist()
+    with obs.d2h("grid_aux"):
+        aux = aux.reshape(-1).tolist()
     dropped = aux[0]
     integrity = aux[1] if len(aux) > 1 else 0
     if integrity != 0:

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import single
 from repro_torch.core.constants import MIN_GAIN
 from repro_torch.core.single import F32, I32, NEG, MatchState
@@ -155,13 +156,18 @@ def greedy_loop(n: int, b: int, propose_fn, device):
     collectives in ``core.dist``. Instances whose round proposes nothing go
     inactive (their mates freeze). Returns (mate_row, mate_col), each
     [B, n + 1]."""
-    mate_row, mate_col = empty_mates(b, n, device)
-    active = torch.ones(b, dtype=torch.bool, device=device)
-    while bool(active.any()):
-        pv, prow = propose_fn(mate_row, mate_col)
-        mate_row, mate_col, active = greedy_commit(pv, prow, n, mate_row,
-                                                   mate_col, active)
-    return mate_row, mate_col
+    with obs.span("greedy"):
+        mate_row, mate_col = empty_mates(b, n, device)
+        active = torch.ones(b, dtype=torch.bool, device=device)
+        go = obs.flag(active.any(), "greedy")
+        while go:
+            with obs.step("greedy.round"):
+                obs.count("greedy.rounds")
+                pv, prow = propose_fn(mate_row, mate_col)
+                mate_row, mate_col, active = greedy_commit(
+                    pv, prow, n, mate_row, mate_col, active)
+                go = obs.flag(active.any(), "greedy")
+        return mate_row, mate_col
 
 
 def greedy_maximal_batched(row, col, val, n: int):
@@ -232,18 +238,22 @@ def mcm_bfs_loop(n: int, b: int, mate_row, mate_col, parents_fn):
         return (~found) & progressed & (layers <= n)
 
     act = act_of()
-    while bool(act.any()):
-        new, pcol = parents_fn(frontier, visited)
-        parent_col2, visited2, frontier2, found2 = bfs_commit(
-            new, pcol, n, mate_col, parent_col, visited)
-        keep = act[:, None]
-        frontier = torch.where(keep, frontier2, frontier)
-        parent_col = torch.where(keep, parent_col2, parent_col)
-        visited = torch.where(keep, visited2, visited)
-        found = torch.where(act, found2, found)
-        layers = layers + act.to(I32)
-        progressed = torch.where(act, new.any(dim=1), progressed)
-        act = act_of()
+    go = obs.flag(act.any(), "mcm_layer")
+    while go:
+        with obs.step("mcm.layer"):
+            obs.count("mcm.layers")
+            new, pcol = parents_fn(frontier, visited)
+            parent_col2, visited2, frontier2, found2 = bfs_commit(
+                new, pcol, n, mate_col, parent_col, visited)
+            keep = act[:, None]
+            frontier = torch.where(keep, frontier2, frontier)
+            parent_col = torch.where(keep, parent_col2, parent_col)
+            visited = torch.where(keep, visited2, visited)
+            found = torch.where(act, found2, found)
+            layers = layers + act.to(I32)
+            progressed = torch.where(act, new.any(dim=1), progressed)
+            act = act_of()
+            go = obs.flag(act.any(), "mcm_layer")
     return parent_col, visited, found, layers
 
 
@@ -267,7 +277,10 @@ def trace_and_flip_batched(parent_col, visited, found, layers, mate_row,
     active = torch.zeros(b, n + 1, dtype=torch.bool, device=dev)
     active[:, :n] = visited[:, :n] & (mate_col[:, :n] == n)
     active &= found[:, None]
-    steps = int(layers.max()) if b else 0
+    steps = 0
+    if b:
+        with obs.d2h("mcm_flip"):
+            steps = int(layers.max())
 
     cur = widx
     for t in range(steps):
@@ -305,22 +318,26 @@ def mcm_loop(n: int, b: int, mate_row, mate_col, parents_fn):
     parameterized by the per-layer parent selection (``parents_fn``, see
     ``mcm_bfs_loop``), so the distributed engine shares every mask and
     commit. Returns (mate_row, mate_col, phases run)."""
-    active = (mate_row[:, :n] == n).any(dim=1)
-    phases = 0
-    while bool(active.any()):
-        phases += 1
-        parent_col, visited, found, layers = mcm_bfs_loop(
-            n, b, mate_row, mate_col, parents_fn)
-        # frozen instances trace nothing: zero their layer counts + found
-        found = found & active
-        layers = torch.where(active, layers, 0)
-        mr2, mc2 = trace_and_flip_batched(parent_col, visited, found, layers,
-                                          mate_row, mate_col, n)
-        keep = active[:, None]
-        mate_row = torch.where(keep, mr2, mate_row)
-        mate_col = torch.where(keep, mc2, mate_col)
-        active = active & found & (mate_row[:, :n] == n).any(dim=1)
-    return mate_row, mate_col, phases
+    with obs.span("mcm"):
+        obs.count("mcm.layers", 0)
+        active = (mate_row[:, :n] == n).any(dim=1)
+        phases = 0
+        while obs.flag(active.any(), "mcm_phase"):
+            phases += 1
+            parent_col, visited, found, layers = mcm_bfs_loop(
+                n, b, mate_row, mate_col, parents_fn)
+            # frozen instances trace nothing: zero their layer counts + found
+            found = found & active
+            layers = torch.where(active, layers, 0)
+            with obs.span("mcm.flip"):
+                mr2, mc2 = trace_and_flip_batched(parent_col, visited, found,
+                                                  layers, mate_row, mate_col,
+                                                  n)
+            keep = active[:, None]
+            mate_row = torch.where(keep, mr2, mate_row)
+            mate_col = torch.where(keep, mc2, mate_col)
+            active = active & found & (mate_row[:, :n] == n).any(dim=1)
+        return mate_row, mate_col, phases
 
 
 def mcm_batched(row, col, val, n: int, mate_row, mate_col):
@@ -416,7 +433,7 @@ def awac_loop(n: int, state: MatchState, max_iter: int, cwinners_fn,
     # on the meta device (the dry run's trace) no flag can be read: one
     # round runs, the branch of a round that augments
     meta, rounds = dev.type == "meta", 0
-    while (rounds < 1) if meta else bool(active.any()):
+    while (rounds < 1) if meta else obs.flag(active.any(), "awac"):
         rounds += 1
         Cgain, Ci, Cw1, Cw2, a = cwinners_fn(state)
         new_state, n_surv = single.select_and_augment(n, Cgain, Ci, Cw1, Cw2,
@@ -448,32 +465,35 @@ def awac_batched(row, col, val, n: int, state: MatchState,
 
     Same backend contract as ``single.awac``; every instance's result and
     iteration count are bit-identical to its own single-instance run."""
-    backend = single.resolve_backend(backend, row.device, n=n,
-                                     batch=row.shape[0])
-    window_steps = _resolve_window_steps_batched(row, n, window_steps)
-    if row_ptr is None:
-        row_ptr = batched_row_ptr_from_sorted(row, n)
-    min_gain = single._min_gain_tensor(min_gain, row.device)
-    b = row.shape[0]
-    active0 = is_perfect_batched(state, n) if degrade_infeasible else None
-    if backend == "cuda_persistent":
-        go0 = active0 if active0 is not None \
-            else torch.ones(b, dtype=torch.bool, device=row.device)
-        mr, mc, u, v, iters = awac_persistent_loop_batched(
-            row, col, val, row_ptr, state.mate_row, state.mate_col, state.u,
-            state.v, min_gain, go0, n=n, window_steps=window_steps,
-            max_iter=max_iter)
-        return MatchState(mr, mc, u, v), iters
+    with obs.span("awac"):
+        backend = single.resolve_backend(backend, row.device, n=n,
+                                         batch=row.shape[0])
+        window_steps = _resolve_window_steps_batched(row, n, window_steps)
+        if row_ptr is None:
+            row_ptr = batched_row_ptr_from_sorted(row, n)
+        min_gain = single._min_gain_tensor(min_gain, row.device)
+        b = row.shape[0]
+        active0 = is_perfect_batched(state, n) if degrade_infeasible \
+            else None
+        if backend == "cuda_persistent":
+            go0 = active0 if active0 is not None \
+                else torch.ones(b, dtype=torch.bool, device=row.device)
+            mr, mc, u, v, iters = awac_persistent_loop_batched(
+                row, col, val, row_ptr, state.mate_row, state.mate_col,
+                state.u, state.v, min_gain, go0, n=n,
+                window_steps=window_steps, max_iter=max_iter)
+            return MatchState(mr, mc, u, v), iters
 
-    scratch = SweepScratch()  # the sweep kernel's, kept across rounds
+        scratch = SweepScratch()  # the sweep kernel's, kept across rounds
 
-    def cwinners(st):
-        return (*_cwinners_batched(backend, row, col, val, row_ptr, n, st,
-                                   min_gain, window_steps, scratch), 0)
+        def cwinners(st):
+            return (*_cwinners_batched(backend, row, col, val, row_ptr, n,
+                                       st, min_gain, window_steps, scratch),
+                    0)
 
-    state, iters, _ = awac_loop(n, state, max_iter, cwinners,
-                                active0=active0)
-    return state, iters
+        state, iters, _ = awac_loop(n, state, max_iter, cwinners,
+                                    active0=active0)
+        return state, iters
 
 
 # --------------------------------------------------------------------------
@@ -546,9 +566,11 @@ def warm_mates_batched(row, col, val, row_ptr, n: int, mate_row, mate_col,
     warm-start replacement for the cold greedy and MCM phases. Each MCM
     phase matches a free row or stops, so an intact seed runs none.
     Returns (mate_row, mate_col)."""
-    mate_row, mate_col = repair_mates_batched(
-        row, col, val, row_ptr, n, mate_row, mate_col, window_steps)
-    return mcm_batched(row, col, val, n, mate_row, mate_col)
+    with obs.span("warm.repair"):
+        mate_row, mate_col = repair_mates_batched(
+            row, col, val, row_ptr, n, mate_row, mate_col, window_steps)
+    with obs.span("warm.topup"):
+        return mcm_batched(row, col, val, n, mate_row, mate_col)
 
 
 def _warm_state_batched(row, col, val, n: int, mate_row, mate_col, row_ptr,
@@ -556,12 +578,15 @@ def _warm_state_batched(row, col, val, n: int, mate_row, mate_col, row_ptr,
     """The warm engine's phases before AWAC: the seed normalized, repaired
     and topped up, then its duals built. The grid runs its AWAC from this
     state. Returns a MatchState of [B, n + 1] fields."""
-    mate_row, mate_col = _normalize_mates_batched(
-        mate_row, mate_col, row.shape[0], n, row.device)
-    mate_row, mate_col = warm_mates_batched(
-        row, col, val, row_ptr, n, mate_row, mate_col, window_steps)
-    return _state_from_mates_windowed(row, col, val, row_ptr, n, mate_row,
-                                      mate_col, window_steps)
+    with obs.span("warm_state"):
+        mate_row, mate_col = _normalize_mates_batched(
+            mate_row, mate_col, row.shape[0], n, row.device)
+        mate_row, mate_col = warm_mates_batched(
+            row, col, val, row_ptr, n, mate_row, mate_col, window_steps)
+        with obs.span("warm.duals"):
+            return _state_from_mates_windowed(row, col, val, row_ptr, n,
+                                              mate_row, mate_col,
+                                              window_steps)
 
 
 def _awpm_batched_from_state(row, col, val, n: int, mate_row, mate_col,

@@ -48,6 +48,8 @@ from typing import Any
 
 import numpy as np
 
+from repro_torch import obs
+
 __all__ = [
     "InfeasibleProblemError",
     "PreflightError",
@@ -145,9 +147,14 @@ class InfeasibleProblemError(PreflightError):
 
 
 def _host(problem):
-    """numpy copies of the problem's edge arrays."""
-    return tuple(x.cpu().numpy() for x in (problem.row, problem.col,
-                                           problem.val))
+    """numpy copies of the problem's edge arrays: three reads of the
+    device."""
+    with obs.span("preflight.copy"):
+        out = []
+        for x in (problem.row, problem.col, problem.val):
+            with obs.d2h("preflight"):
+                out.append(x.cpu().numpy())
+        return tuple(out)
 
 
 def _sample(idx: np.ndarray, k: int = 4) -> tuple[int, ...]:
@@ -219,11 +226,12 @@ def preflight(problem, *, feasibility: bool = False) -> PreflightReport:
     row, col, val = _host(problem)
     n = int(problem.n)
     issues = []
-    if row.ndim == 1:
-        issues += _scan_instance(row, col, val, n, None)
-    else:
-        for b in range(row.shape[0]):
-            issues += _scan_instance(row[b], col[b], val[b], n, b)
+    with obs.span("preflight.scan"):
+        if row.ndim == 1:
+            issues += _scan_instance(row, col, val, n, None)
+        else:
+            for b in range(row.shape[0]):
+                issues += _scan_instance(row[b], col[b], val[b], n, b)
     if feasibility:
         issues += _mcm_screen(problem)
     return PreflightReport(tuple(issues), checked_feasibility=feasibility)
@@ -268,8 +276,11 @@ def deficiency_from_mates(mate_row, n: int, report: PreflightReport | None,
     """Fold the deficiency observed on a solved (maximal) matching into a
     report — how the solve pipeline attaches its free MCM screen result."""
     report = report or PreflightReport(())
-    mr = mate_row.cpu().numpy() if hasattr(mate_row, "cpu") \
-        else np.asarray(mate_row)
+    if hasattr(mate_row, "cpu"):
+        with obs.d2h("deficiency"):
+            mr = mate_row.cpu().numpy()
+    else:
+        mr = np.asarray(mate_row)
     issues = []
     if batched:
         card = (mr[:, :n] < n).sum(axis=1)

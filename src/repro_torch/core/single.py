@@ -11,10 +11,12 @@ Conventions (everywhere in repro_torch.core):
     order so every backend agrees bit for bit.
 
 The loops of the phases are Python loops that read one flag from the
-device per round. Scatters with duplicate indices only ever write values
-that are identical across the duplicates (the dump slot ``n``, reset
-afterwards), and every winner selection is an order-free max/min, so the
-results do not depend on the order in which the device combines writes.
+device per round; ``repro_torch.obs`` spans each phase, each greedy round
+and BFS layer, and each such read (``d2h.<site>``). Scatters with
+duplicate indices only ever write values that are identical across the
+duplicates (the dump slot ``n``, reset afterwards), and every winner
+selection is an order-free max/min, so the results do not depend on the
+order in which the device combines writes.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.constants import MIN_GAIN
 from repro_torch.kernels.cycle_gain.awac_sweep import SweepScratch
 from repro_torch.kernels.cycle_gain.ops import awac_persistent_loop, awac_sweep_winners
@@ -141,14 +144,17 @@ def greedy_round(row, col, val, n: int, mate_row, mate_col):
 
 
 def greedy_maximal(row, col, val, n: int) -> MatchState:
-    st = empty_state(n, row.device)
-    mate_row, mate_col = st.mate_row, st.mate_col
-    while True:
-        mate_row, mate_col, progressed = greedy_round(row, col, val, n,
-                                                      mate_row, mate_col)
-        if not bool(progressed):
-            break
-    return state_from_mates(row, col, val, n, mate_row, mate_col)
+    with obs.span("greedy"):
+        st = empty_state(n, row.device)
+        mate_row, mate_col = st.mate_row, st.mate_col
+        progressed = True
+        while progressed:
+            with obs.step("greedy.round"):
+                obs.count("greedy.rounds")
+                mate_row, mate_col, progressed = greedy_round(
+                    row, col, val, n, mate_row, mate_col)
+                progressed = obs.flag(progressed, "greedy")
+        return state_from_mates(row, col, val, n, mate_row, mate_col)
 
 
 # --------------------------------------------------------------------------
@@ -205,23 +211,28 @@ def _mcm_bfs(row, col, val, n: int, mate_row, mate_col):
     visited = torch.zeros(n + 1, dtype=torch.bool, device=dev)
     found, layers, progressed = False, 0, True
     while (not found) and progressed and layers <= n:
-        elig = (row < n) & frontier[coll] & (~visited[rowl])
-        score = torch.where(elig, val, NEG)
-        seg = torch.where(elig, row, n)
-        _, re = segment_max_with_payload(score, eidx, seg, n + 1)
-        new = re[:n] >= 0
-        pc = torch.where(new, col[re[:n].clamp(min=0).long()], parent_col[:n])
-        parent_col = parent_col.clone()
-        parent_col[:n] = pc
-        visited = visited.clone()
-        visited[:n] |= new
-        free_new = new & (mate_col[:n] == n)
-        nf_idx = torch.where(new & ~free_new, mate_col[:n], n)
-        frontier = torch.zeros(n + 1, dtype=torch.bool, device=dev)
-        frontier[nf_idx.long()] = True
-        frontier[n] = False
-        layers += 1
-        found, progressed = torch.stack([free_new.any(), new.any()]).tolist()
+        with obs.step("mcm.layer"):
+            obs.count("mcm.layers")
+            elig = (row < n) & frontier[coll] & (~visited[rowl])
+            score = torch.where(elig, val, NEG)
+            seg = torch.where(elig, row, n)
+            _, re = segment_max_with_payload(score, eidx, seg, n + 1)
+            new = re[:n] >= 0
+            pc = torch.where(new, col[re[:n].clamp(min=0).long()],
+                             parent_col[:n])
+            parent_col = parent_col.clone()
+            parent_col[:n] = pc
+            visited = visited.clone()
+            visited[:n] |= new
+            free_new = new & (mate_col[:n] == n)
+            nf_idx = torch.where(new & ~free_new, mate_col[:n], n)
+            frontier = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+            frontier[nf_idx.long()] = True
+            frontier[n] = False
+            layers += 1
+            with obs.d2h("mcm_layer"):
+                found, progressed = torch.stack(
+                    [free_new.any(), new.any()]).tolist()
     return parent_col, visited, found, layers
 
 
@@ -230,8 +241,9 @@ def mcm_phase(row, col, val, n: int, mate_row, mate_col):
     found. Returns (mate_row, mate_col, found)."""
     parent_col, visited, found, layers = _mcm_bfs(row, col, val, n, mate_row,
                                                  mate_col)
-    mate_row, mate_col = trace_and_flip(parent_col, visited, found, layers,
-                                        mate_row, mate_col, n)
+    with obs.span("mcm.flip"):
+        mate_row, mate_col = trace_and_flip(parent_col, visited, found,
+                                            layers, mate_row, mate_col, n)
     return mate_row, mate_col, found
 
 
@@ -239,13 +251,15 @@ def mcm(row, col, val, n: int, mate_row, mate_col) -> MatchState:
     """Maximum cardinality matching from an initial matching, with the
     paper's weight-aware tie-breaking (heaviest eligible edge chosen as BFS
     parent)."""
-    mate_row = _with_sentinel(mate_row.to(I32), n)
-    mate_col = _with_sentinel(mate_col.to(I32), n)
-    go = True
-    while go and bool((mate_row[:n] == n).any()):
-        mate_row, mate_col, go = mcm_phase(row, col, val, n, mate_row,
-                                           mate_col)
-    return state_from_mates(row, col, val, n, mate_row, mate_col)
+    with obs.span("mcm"):
+        obs.count("mcm.layers", 0)
+        mate_row = _with_sentinel(mate_row.to(I32), n)
+        mate_col = _with_sentinel(mate_col.to(I32), n)
+        go = True
+        while go and obs.flag((mate_row[:n] == n).any(), "mcm_phase"):
+            mate_row, mate_col, go = mcm_phase(row, col, val, n, mate_row,
+                                               mate_col)
+        return state_from_mates(row, col, val, n, mate_row, mate_col)
 
 
 # --------------------------------------------------------------------------
@@ -443,7 +457,8 @@ def _min_gain_tensor(min_gain, device) -> torch.Tensor:
 def _awac_loop(row, col, val, row_ptr, n: int, state: MatchState,
                max_iter: int, min_gain, backend: str, window_steps: int,
                degrade_infeasible: bool = False):
-    go = bool(is_perfect(state, n)) if degrade_infeasible else True
+    go = obs.flag(is_perfect(state, n), "awac") if degrade_infeasible \
+        else True
     it = 0
     scratch = SweepScratch()  # the sweep kernel's, kept across rounds
     while go and it < max_iter:
@@ -452,7 +467,7 @@ def _awac_loop(row, col, val, row_ptr, n: int, state: MatchState,
                                         scratch)
         state, n_surv = select_and_augment(n, Cgain, Ci, Cw1, Cw2, state)
         it += 1
-        go = bool(n_surv > 0)
+        go = obs.flag(n_surv > 0, "awac")
     return state, torch.tensor(it, dtype=I32, device=row.device)
 
 
@@ -468,21 +483,22 @@ def awac(row, col, val, n: int, state: MatchState, max_iter: int = 1000,
     tensor the two kernel backends run their kernels' plain versions. All
     backends produce identical states and iteration counts.
     """
-    backend = resolve_backend(backend, row.device, n=n)
-    window_steps = _resolve_window_steps(row, n, window_steps)
-    if row_ptr is None:
-        row_ptr = row_ptr_from_sorted(row, n)
-    min_gain = _min_gain_tensor(min_gain, row.device)
-    if backend == "cuda_persistent":
-        go0 = is_perfect(state, n) if degrade_infeasible \
-            else torch.tensor(True, device=row.device)
-        mr, mc, u, v, iters = awac_persistent_loop(
-            row, col, val, row_ptr, state.mate_row, state.mate_col, state.u,
-            state.v, min_gain, go0, n=n, window_steps=window_steps,
-            max_iter=max_iter)
-        return MatchState(mr, mc, u, v), iters
-    return _awac_loop(row, col, val, row_ptr, n, state, max_iter, min_gain,
-                      backend, window_steps, degrade_infeasible)
+    with obs.span("awac"):
+        backend = resolve_backend(backend, row.device, n=n)
+        window_steps = _resolve_window_steps(row, n, window_steps)
+        if row_ptr is None:
+            row_ptr = row_ptr_from_sorted(row, n)
+        min_gain = _min_gain_tensor(min_gain, row.device)
+        if backend == "cuda_persistent":
+            go0 = is_perfect(state, n) if degrade_infeasible \
+                else torch.tensor(True, device=row.device)
+            mr, mc, u, v, iters = awac_persistent_loop(
+                row, col, val, row_ptr, state.mate_row, state.mate_col,
+                state.u, state.v, min_gain, go0, n=n,
+                window_steps=window_steps, max_iter=max_iter)
+            return MatchState(mr, mc, u, v), iters
+        return _awac_loop(row, col, val, row_ptr, n, state, max_iter,
+                          min_gain, backend, window_steps, degrade_infeasible)
 
 
 def _awpm(row, col, val, n: int, max_iter: int = 1000,

@@ -15,6 +15,8 @@ import math
 import numpy as np
 import torch
 
+from repro_torch import obs
+
 
 @dataclasses.dataclass
 class PaddedCSR:
@@ -127,14 +129,16 @@ def max_row_nnz(row: torch.Tensor, n: int) -> int:
     """Max nonzeros in any row of a padded COO row array — [cap], or
     [B, cap] for a batch, in which case the max is taken across all
     instances (each instance's rows counted separately). One device-to-host
-    read."""
-    if row.dim() == 2:
-        offs = torch.arange(row.shape[0], device=row.device,
-                            dtype=torch.int64)[:, None] * n
-        real = row < n
-        r = (row.to(torch.int64) + offs)[real]
-    else:
-        r = row[row < n].to(torch.int64)
-    if r.numel() == 0:
-        return 1
-    return int(torch.bincount(r).max().item())
+    read (span ``d2h.row_nnz``, which also holds the syncs of the masked
+    select and of ``bincount``)."""
+    with obs.d2h("row_nnz"):
+        if row.dim() == 2:
+            offs = torch.arange(row.shape[0], device=row.device,
+                                dtype=torch.int64)[:, None] * n
+            real = row < n
+            r = (row.to(torch.int64) + offs)[real]
+        else:
+            r = row[row < n].to(torch.int64)
+        if r.numel() == 0:
+            return 1
+        return int(torch.bincount(r).max().item())

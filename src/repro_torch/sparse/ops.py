@@ -33,6 +33,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
+
 NEG = float("-inf")
 INT32_MAX = 2**31 - 1
 
@@ -69,10 +71,13 @@ def segment_min(values, segment_ids, num_segments: int, live=None):
 
 def _finite_entries(values):
     """The indices of the entries of ``values`` [m] above -inf (one host
-    read for their count); on ``meta``, every index."""
+    read for their count, span ``d2h.nonzero``); on ``meta``, every
+    index."""
     if values.device.type == "meta":
         return torch.arange(values.shape[0], device=values.device)
-    return (values != NEG).nonzero().squeeze(1)
+    finite = values != NEG
+    with obs.d2h("nonzero"):
+        return finite.nonzero().squeeze(1)
 
 
 def segment_max_with_payload(values, payload, segment_ids, num_segments: int):
