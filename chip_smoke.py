@@ -23,10 +23,13 @@ card, and prints what it measured:
   2. one instance, n = 1,048,576, avg_degree 16, kind "antigreedy",
      seed 0: ``solve()`` with backend "auto" (must resolve to the
      committed dispatch table's winner, whose kernel's launches are
-     checked: the persistent kernel once, or the sweep kernel once per
-     round), "cuda" (the sweep kernel once per round) and
-     "torch", with identical states and iteration counts; the greedy /
-     MCM / AWAC split; the persistent kernel against its plain version,
+     checked: the MCM kernel once, and the persistent kernel once or the
+     sweep kernel once per round), "cuda" (the MCM kernel once, the sweep
+     kernel once per round) and "torch", with identical states and
+     iteration counts; the greedy / MCM (its kernel, and the plain
+     version's BFS / trace-flip split) / AWAC split; the MCM kernel
+     against its plain version from the greedy state, mates and stats bit
+     for bit, both timed; the persistent kernel against its plain version,
      timed to convergence and at ``max_iter=1``, with its device time
      from ``torch.profiler``;
   3. a batch of 16 instances, n = 65,536, avg_degree 8, kinds cycling
@@ -350,6 +353,7 @@ from repro_torch.kernels.cycle_gain.ref import cycle_gain_plain  # noqa: E402
 from repro_torch.kernels.embedding_bag import embedding_bag_plain  # noqa: E402
 # the wrapper module of K6 (its package exports a function of that name)
 K6 = importlib.import_module("repro_torch.kernels.embedding_bag.embedding_bag")
+from repro_torch.kernels.mcm.persistent import mcm_persistent  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention,
     attention_plain,
@@ -692,6 +696,18 @@ def loop_bytes(cap: int, n: int, iters) -> tuple[float, float]:
     return read + b * 16 * (n + 1), rounds * 3.0 * cap
 
 
+def mcm_bytes(nnz: int, n: int, phases: int,
+              layers: int) -> tuple[float, float]:
+    """Bytes and operations MCM must move and do for this run's phases and
+    layers, whatever the design: each phase's BFS touches every edge's
+    column and value once (a push over the frontier columns' edges would
+    too, once a phase); each layer reads and writes a frontier bitmap; the
+    matching read and written once; one comparison an edge a phase."""
+    words = -(-n // 32)
+    return (8.0 * nnz * phases + 8.0 * words * layers + 16.0 * (n + 1),
+            float(nnz) * phases)
+
+
 def lookup_sectors(row, col, rp, mate_row, mate_col, n: int,
                    active=None) -> tuple[int, int]:
     """32-byte sectors that one sweep's completion lookups touch on this
@@ -795,8 +811,9 @@ def same_results(a, b, what: str) -> None:
 
 
 def mcm_counted(row, col, val, n, st):
-    """``single.mcm`` from a greedy state, phase by phase, counting phases
-    and BFS layers and timing the BFS apart from the trace/flip."""
+    """``single.mcm``'s plain version from a greedy state, phase by phase,
+    counting phases and BFS layers and timing the BFS apart from the
+    trace/flip."""
     mr, mc = st.mate_row, st.mate_col
     out = dict(phases=0, layers=0, bfs_s=0.0, flip_s=0.0)
     go = True
@@ -947,12 +964,15 @@ def phase_single(log, kernels):
     require(r_auto.execution.backend == auto_backend(n),
             f"auto resolved to {r_auto.execution.backend}")
     auto_launches(r_auto.execution, k_auto, int(r_auto.awac_iters),
-                  "[single] auto")
+                  "[single] auto", single_route=True)
     backend.reset_launch_counts()
     r_cuda, t_cuda = wall(lambda: solve(p, SolveOptions(backend="cuda")))
     k_cuda = backend.launch_counts()
     require(k_cuda["awac_sweep"] >= 1,
             f"the sweep kernel was not launched: {k_cuda}")
+    require(k_cuda["mcm_persistent"] == 1,
+            f"cuda: the MCM kernel was launched "
+            f"{k_cuda['mcm_persistent']} times, not once")
     require(k_cuda["awac_sweep"] == int(r_cuda.awac_iters),
             f"sweep launches {k_cuda} != rounds {int(r_cuda.awac_iters)}")
     r_torch, t_torch = wall(lambda: solve(p, SolveOptions(backend="torch")))
@@ -962,15 +982,26 @@ def phase_single(log, kernels):
     kernels["awac_persistent"]["launches"] = k_auto["awac_persistent"]
     kernels["awac_sweep"]["launches"] = k_cuda["awac_sweep"] \
         + k_auto["awac_sweep"]
+    kernels["mcm_persistent"]["launches"] = k_cuda["mcm_persistent"] \
+        + k_auto["mcm_persistent"]
     iters = int(r_auto.awac_iters)
     print(f"[single] solve(): auto {t_auto:.2f} s, cuda {t_cuda:.2f} s, "
           f"torch {t_torch:.2f} s; {iters} AWAC rounds, weight "
           f"{float(r_auto.weight)!r}; launches auto {k_auto}, cuda {k_cuda}")
 
-    # the phase split, engine by engine
+    # the phase split, engine by engine; MCM as solve() runs it, in its
+    # kernel, and its plain version phase by phase
     row, col, val = p.row, p.col, p.val
-    st, t_greedy = wall(lambda: single.greedy_maximal(row, col, val, n))
-    (st, mcm_log), t_mcm = wall(lambda: mcm_counted(row, col, val, n, st))
+    rp = row_ptr_from_sorted(row, n)
+    st0, t_greedy = wall(lambda: single.greedy_maximal(row, col, val, n))
+    st, t_mcm = wall(lambda: single.mcm(row, col, val, n, st0.mate_row,
+                                        st0.mate_col, row_ptr=rp))
+    (st_plain, mcm_log), t_mcm_plain = wall(
+        lambda: mcm_counted(row, col, val, n, st0))
+    for field in ("mate_row", "mate_col", "u", "v"):
+        require(torch.equal(getattr(st, field), getattr(st_plain, field)),
+                f"single: MCM's {field} differs between its kernel and its "
+                f"plain version")
     t_awac = {}
     for b in ("cuda_persistent", "cuda", "torch"):
         (s, it), t_awac[b] = wall(lambda: single.awac(row, col, val, n, st,
@@ -980,8 +1011,8 @@ def phase_single(log, kernels):
         final = s
     t_pre = t_auto - t_greedy - t_mcm - t_awac["cuda_persistent"]
     print(f"[single] MCM: {mcm_log['phases']} phases, {mcm_log['layers']} BFS "
-          f"layers; BFS {mcm_log['bfs_s']:.3f} s, trace/flip "
-          f"{mcm_log['flip_s']:.3f} s")
+          f"layers; kernel {t_mcm:.3f} s; plain {t_mcm_plain:.3f} s: BFS "
+          f"{mcm_log['bfs_s']:.3f} s, trace/flip {mcm_log['flip_s']:.3f} s")
     print(f"[single] split: greedy {t_greedy:.3f} s, MCM {t_mcm:.3f} s, "
           f"AWAC cuda_persistent {t_awac['cuda_persistent']:.3f} s / cuda "
           f"{t_awac['cuda']:.3f} s / torch {t_awac['torch']:.3f} s; the rest "
@@ -989,9 +1020,11 @@ def phase_single(log, kernels):
     log["single"] = dict(n=n, nnz=g.nnz, cap=g.capacity, iters=iters,
                          solve_s=dict(auto=t_auto, cuda=t_cuda,
                                       torch=t_torch),
-                         greedy_s=t_greedy, mcm_s=t_mcm, mcm=mcm_log,
+                         greedy_s=t_greedy, mcm_s=t_mcm,
+                         mcm_plain_s=t_mcm_plain, mcm=mcm_log,
                          awac_s=t_awac,
                          rest_s=t_pre)
+    phase_mcm_kernel(log, kernels, row, col, val, rp, st0, g.nnz, n)
 
     # the persistent kernel against its plain version, from the MCM state
     args, ws = single_inputs(row, col, val, n, st)
@@ -1023,6 +1056,40 @@ def phase_single(log, kernels):
     log["single"].update(loop_ms=k2["ms"], loop_one_round_ms=one_ms,
                          loop_device=split, loop_lookup_sectors=sectors)
     return p, st, args, ws, mg, iters, r_auto, final
+
+
+def phase_mcm_kernel(log, kernels, row, col, val, rp, st0, nnz, n):
+    """The MCM kernel against its plain version (``single.mcm_plain``) at
+    the main path's shapes, from the greedy state ``st0``: mates bit for
+    bit, its stats the plain loop's phases, layers and free word; both
+    timed with CUDA events, the bound from this run's phases and
+    layers."""
+    mr0, mc0 = st0.mate_row, st0.mate_col
+    got = mcm_persistent(row, col, val, rp, mr0, mc0, n=n)
+    sync()
+    want = single.mcm_plain(row, col, val, n, mr0, mc0)
+    err = assert_identical(got[:2], want[:2],
+                           "single: MCM kernel vs plain")
+    phases, layers, free = got[2].tolist()
+    require([phases, layers, free] == [want[2], want[3], int(want[4])],
+            f"single: MCM kernel stats {[phases, layers, free]}, plain "
+            f"{list(want[2:4])} and free {bool(want[4])}")
+    km = kernels["mcm_persistent"]
+    km["max_abs_err"] = err
+    km["ms"] = event_ms(lambda: mcm_persistent(row, col, val, rp, mr0, mc0,
+                                               n=n), 5)
+    km["plain_ms"] = event_ms(lambda: single.mcm_plain(row, col, val, n,
+                                                       mr0, mc0), 3)
+    km["bound_ms"], km["bound_by"] = bound_ms(*mcm_bytes(nnz, n, phases,
+                                                         layers))
+    print(f"[single] MCM kernel {km['ms']:.3f} ms (median of 5), plain "
+          f"{km['plain_ms']:.3f} ms (median of 3), bound "
+          f"{km['bound_ms']:.3f} ms ({km['bound_by']}); {phases} phases, "
+          f"{layers} BFS layers; mates and stats == plain")
+    log["single"].update(mcm_kernel_ms=km["ms"],
+                         mcm_plain_ms=km["plain_ms"],
+                         mcm_bound_ms=km["bound_ms"], mcm_phases=phases,
+                         mcm_layers=layers)
 
 
 def phase_batch(log, kernels):
@@ -1574,17 +1641,22 @@ def auto_backend(n=None, batch=None) -> str:
     return chosen
 
 
-def auto_launches(ex, k, rounds: int, what: str) -> None:
+def auto_launches(ex, k, rounds: int, what: str,
+                  single_route: bool = False) -> None:
     """The launches of one ``solve()`` that ran "auto", read against the
     backend the table resolved it to (``ex``, its ``ExecutionInfo``): the
     persistent kernel once (one launch runs the whole loop, of every
     lane), the sweep kernel once per AWAC round (``rounds``, the most any
-    lane ran), no kernel for "torch" or "reference"."""
+    lane ran), no kernel for "torch" or "reference"; with a kernel
+    backend, the MCM kernel once on the single-instance route
+    (``single_route``: one launch runs every phase) and never on the
+    batched one, whose MCM is ``batch.mcm_loop``."""
     require(ex.source == "table", f"{what}: auto resolved by {ex.source}")
-    want = {"awac_persistent": 0, "awac_sweep": 0}
+    want = {"awac_persistent": 0, "awac_sweep": 0, "mcm_persistent": 0}
     if ex.backend in KERNEL_OF:
         want[KERNEL_OF[ex.backend]] = 1 if ex.backend == "cuda_persistent" \
             else rounds
+        want["mcm_persistent"] = int(single_route)
     got = {name: k[name] for name in want}
     require(got == want, f"{what}: launches {got} for auto = {ex.backend} "
             f"over {rounds} round(s); want {want}")
@@ -1637,6 +1709,7 @@ def phase_resilient(log, kernels, grid, single_run, batch_run):
         require(k[KERNEL_OF[first]] >= 1, f"[resilient] clean launches {k}")
     same_results(rr.result, r_local, "[resilient] clean vs solve()")
     kernels["awac_persistent"]["launches"] += k["awac_persistent"]
+    kernels["mcm_persistent"]["launches"] += k["mcm_persistent"]
     fails, t_verify = wall(lambda: verify_result(p, rr.result))
     require(fails == (), f"[resilient] verify_result: {fails}")
     print(f"[resilient] n={p.n}: served by {rr.report.backend_used} in "
@@ -1659,6 +1732,7 @@ def phase_resilient(log, kernels, grid, single_run, batch_run):
     require(cert is not None and cert.upper_bound >= cert.weight,
             "[resilient] the certificate is missing or unsound")
     kernels["awac_persistent"]["launches"] += k["awac_persistent"]
+    kernels["mcm_persistent"]["launches"] += k["mcm_persistent"]
     print(f"[resilient] n={pc.n} with certify=True: {t_c:.2f} s "
           f"({guard_text(rc)}); bound {cert.upper_bound!r} over weight "
           f"{cert.weight!r}, {cert.rounds} rounds, tight {cert.tight} "
@@ -1682,10 +1756,12 @@ def phase_resilient(log, kernels, grid, single_run, batch_run):
             f"[resilient] K2 down: sweep launches {k}")
     same_results(r1.result, r_local, "[resilient] local cuda vs solve()")
     kernels["awac_sweep"]["launches"] += k["awac_sweep"]
+    kernels["mcm_persistent"]["launches"] += k["mcm_persistent"]
     with failing_backend("cuda_persistent", "cuda"):
         r2, t2, k2 = launched(lambda: resilient_solve(p, resilience=guard))
     require(r2.report.backend_used == "local torch" and
-            k2["awac_sweep"] == k2["awac_persistent"] == 0,
+            k2["awac_sweep"] == k2["awac_persistent"]
+            == k2["mcm_persistent"] == 0,
             f"[resilient] both kernels down: {r2.report.summary()}, {k2}")
     same_results(r2.result, r_local, "[resilient] local torch vs solve()")
     print(f"[resilient] grid: {rg.report.summary()} in {t_g:.2f} s; K2 "
@@ -1700,12 +1776,14 @@ def phase_resilient(log, kernels, grid, single_run, batch_run):
     served_first(rm, f"local {first}", "[resilient] batch")
     same_results(rm.result, rb, "[resilient] batch vs solve()")
     kernels["awac_persistent"]["launches"] += k["awac_persistent"]
+    kernels["mcm_persistent"]["launches"] += k["mcm_persistent"]
     rm2, t_m2, k2 = launched(lambda: m(pb))
     served_first(rm2, f"local {first}", "[resilient] batch again")
     require(k2["awac_persistent"] == 1 or first != "cuda_persistent",
             f"[resilient] batch again: launches {k2}")
     same_results(rm2.result, rb, "[resilient] batch again vs solve()")
     kernels["awac_persistent"]["launches"] += k2["awac_persistent"]
+    kernels["mcm_persistent"]["launches"] += k2["mcm_persistent"]
     print(f"[resilient] B={pb.batch_size} n={pb.n} through a "
           f"ResilientMatcher: {t_m1:.2f} s then {t_m2:.2f} s "
           f"({guard_text(rm2)}); launches {k} then {k2} ({card})")
@@ -1732,6 +1810,7 @@ def phase_chaos(log, kernels):
             f"kernel, the survive cases the persistent one")
     kernels["awac_sweep"]["launches"] += k["awac_sweep"]
     kernels["awac_persistent"]["launches"] += k["awac_persistent"]
+    kernels["mcm_persistent"]["launches"] += k["mcm_persistent"]
     print(f"[chaos] {len(records)} cases on the 1x1 grid, all ok, in "
           f"{t:.2f} s; launches {k}; JAX's 2x4 matrix has 29: the 1x1 grid "
           f"has no row to lose without the grid, so no device_loss_partial "
@@ -1770,6 +1849,7 @@ def phase_serve_resilient(log, kernels, plain):
             f"[serve] resilient: {k['awac_persistent']} persistent launches "
             f"for {n_lanes} lanes")
     kernels["awac_persistent"]["launches"] += k["awac_persistent"]
+    kernels["mcm_persistent"]["launches"] += k["mcm_persistent"]
     per = {name: sum(v.values()) / n_lanes for name, v in lanes.items()}
     print(f"[serve] resilient: {len(rs)} responses equal the plain "
           f"service's, each served by local cuda_persistent at the first "
@@ -1804,6 +1884,7 @@ def phase_solver(log, kernels):
         if r.arm == "awpm":
             require(r.k2_launches >= 1, f"[solver] {r.case}: no K2 launch")
     kernels["awac_persistent"]["launches"] += k["awac_persistent"]
+    kernels["mcm_persistent"]["launches"] += k["mcm_persistent"]
     contrast = solver_experiments.contrast_cases(rows)
     print(f"[solver] {len(rows)} (case, arm) rows in {t:.2f} s on the card "
           f"({t_cpu:.2f} s on the CPU); awpm converged to <= "
@@ -1835,6 +1916,7 @@ def solver_at_scale(card, kernels) -> dict:
             and k["awac_persistent"] >= 1,
             f"[solver] {name}: ok {rep.ok}, residual {worst}, launches {k}")
     kernels["awac_persistent"]["launches"] += k["awac_persistent"]
+    kernels["mcm_persistent"]["launches"] += k["mcm_persistent"]
     factor = sparse_lu(CsrMatrix.from_coo(*rep.pivot.scaled_coo(row, col,
                                                                  val), n))
     sb = rep.pivot.scale_rhs(b)
@@ -3059,11 +3141,13 @@ def phase_paper_eval(log, kernels):
                     f"[paper_eval] {r.name}: auto ran {r.backend} "
                     f"({r.dispatch})")
     launches = {name: k[name] + k_l[name]
-                for name in ("awac_sweep", "awac_persistent")}
+                for name in ("awac_sweep", "awac_persistent",
+                             "mcm_persistent")}
     require(launches["awac_sweep"] >= 1 and launches["awac_persistent"] >= 1,
             f"[paper_eval] launches {launches}")
     kernels["awac_sweep"]["launches"] += launches["awac_sweep"]
     kernels["awac_persistent"]["launches"] += launches["awac_persistent"]
+    kernels["mcm_persistent"]["launches"] += launches["mcm_persistent"]
     print(paper_eval.to_markdown(rows))
     bounds = [r.ratio_bound for r in rows if r.ratio_bound is not None]
     worst = min(bounds)
@@ -3131,7 +3215,8 @@ def paper_instances(card: str, kernels: dict) -> dict:
             "--cache-dir", str(work / "cache"), "--suite-count", "0",
             "--no-persist"]
     base = suitesparse.BASE_URL
-    passes, launches = [], {"awac_sweep": 0, "awac_persistent": 0}
+    passes, launches = [], {"awac_sweep": 0, "awac_persistent": 0,
+                            "mcm_persistent": 0}
     t0 = time.perf_counter()
     try:
         for url in (work / "serve", work / "gone"):
@@ -3173,6 +3258,7 @@ def paper_instances(card: str, kernels: dict) -> dict:
             f"[paper_eval] stand-in launches {launches}")
     kernels["awac_sweep"]["launches"] += launches["awac_sweep"]
     kernels["awac_persistent"]["launches"] += launches["awac_persistent"]
+    kernels["mcm_persistent"]["launches"] += launches["mcm_persistent"]
     nnz = {r.name: r.nnz for r in mine}
     for name in names:
         print(f"[paper_eval] {name} (nnz {nnz[name]}), ms a later call, "
@@ -3821,6 +3907,11 @@ def main(argv=None) -> int:
             name="cycle_gain", route="cuda",
             source="src/repro_torch/kernels/csrc/cycle_gain.cu",
             replaces="src/repro/kernels/cycle_gain/cycle_gain.py:64",
+            library_ms=None),
+        "mcm_persistent": dict(
+            name="mcm_persistent", route="cuda",
+            source="src/repro_torch/kernels/csrc/mcm_persistent.cu",
+            replaces="none: plain jnp (src/repro/core/single.py mcm)",
             library_ms=None),
     }
     log = {}

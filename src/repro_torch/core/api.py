@@ -38,7 +38,11 @@ from repro_torch.core import graph as _graph
 from repro_torch.core import preflight as _preflight
 from repro_torch.core import single as _single
 from repro_torch.core.constants import MIN_GAIN
-from repro_torch.core.single import MatchState, resolve_device
+from repro_torch.core.single import (
+    KERNEL_BACKENDS,
+    MatchState,
+    resolve_device,
+)
 from repro_torch.kernels.backend import launch_counts
 from repro_torch.sparse.csr import (
     batched_row_ptr_from_sorted,
@@ -57,9 +61,6 @@ from repro_torch.sparse.partition import plan_block_cap
 #: the 1x1 grid (the block is the whole instance).
 BACKENDS = ("auto", "reference", "torch", "cuda", "cuda_persistent",
             "fused")
-
-#: backends that launch a hand-written kernel for a problem on the card
-KERNEL_BACKENDS = ("cuda", "cuda_persistent")
 
 #: ``SolveOptions.on_invalid`` policies (see ``core.preflight``).
 ON_INVALID = ("raise", "sanitize", "degrade")

@@ -12,7 +12,9 @@ Conventions (everywhere in repro_torch.core):
 
 The loops of the phases are Python loops that read one flag from the
 device per round; ``repro_torch.obs`` spans each phase, each greedy round
-and BFS layer, and each such read (``d2h.<site>``). Scatters with
+and BFS layer, and each such read (``d2h.<site>``). On the card, with a
+kernel backend, MCM runs in one kernel launch instead
+(``kernels.mcm.persistent``), read once. Scatters with
 duplicate indices only ever write values that are identical across the
 duplicates (the dump slot ``n``, reset afterwards), and every winner
 selection is an order-free max/min, so the results do not depend on the
@@ -29,6 +31,7 @@ from repro_torch.core.constants import MIN_GAIN
 from repro_torch.kernels.cycle_gain.awac_sweep import SweepScratch
 from repro_torch.kernels.cycle_gain.ops import awac_persistent_loop, awac_sweep_winners
 from repro_torch.kernels.dispatch import choose_backend
+from repro_torch.kernels.mcm.persistent import mcm_persistent
 from repro_torch.sparse.csr import max_row_nnz, row_ptr_from_sorted, window_depth
 from repro_torch.sparse.ops import (
     NEG,
@@ -44,6 +47,8 @@ F32 = torch.float32
 
 #: every concrete local AWAC backend; "auto" resolves to one of them
 LOCAL_BACKENDS = ("reference", "torch", "cuda", "cuda_persistent")
+#: backends that launch a hand-written kernel for a problem on the card
+KERNEL_BACKENDS = ("cuda", "cuda_persistent")
 
 
 class MatchState(NamedTuple):
@@ -238,26 +243,71 @@ def _mcm_bfs(row, col, val, n: int, mate_row, mate_col):
 
 def mcm_phase(row, col, val, n: int, mate_row, mate_col):
     """One MCM phase: layered BFS + trace/flip of the augmenting paths it
-    found. Returns (mate_row, mate_col, found)."""
+    found. Returns (mate_row, mate_col, found, BFS layers)."""
     parent_col, visited, found, layers = _mcm_bfs(row, col, val, n, mate_row,
                                                  mate_col)
     with obs.span("mcm.flip"):
         mate_row, mate_col = trace_and_flip(parent_col, visited, found,
                                             layers, mate_row, mate_col, n)
-    return mate_row, mate_col, found
+    return mate_row, mate_col, found, layers
 
 
-def mcm(row, col, val, n: int, mate_row, mate_col) -> MatchState:
+def mcm_plain(row, col, val, n: int, mate_row, mate_col):
+    """The MCM phases in plain torch, the MCM kernel's plain version: while
+    a column is free and the last phase found a path. Returns (mate_row,
+    mate_col, phases, BFS layers, whether a column is still free)."""
+    phases = layers = 0
+    while True:
+        free = obs.flag((mate_row[:n] == n).any(), "mcm_phase")
+        if not free:
+            break
+        obs.count("mcm.phases")
+        mate_row, mate_col, found, k = mcm_phase(row, col, val, n, mate_row,
+                                                 mate_col)
+        phases += 1
+        layers += k
+        if not found:
+            break
+    return mate_row, mate_col, phases, layers, free
+
+
+def _mcm_on_kernel(row, n: int, backend: str) -> bool:
+    """Whether MCM runs in its kernel: a problem on the card with a kernel
+    backend; the plain version everywhere else."""
+    return row.device.type == "cuda" and \
+        resolve_backend(backend, row.device, n=n) in KERNEL_BACKENDS
+
+
+def mcm(row, col, val, n: int, mate_row, mate_col, backend: str = "auto",
+        row_ptr=None) -> MatchState:
     """Maximum cardinality matching from an initial matching, with the
     paper's weight-aware tie-breaking (heaviest eligible edge chosen as BFS
-    parent)."""
+    parent).
+
+    backend: as ``awac``'s. On a CUDA tensor a kernel backend runs every
+    phase in the MCM kernel, one launch and one read of its stats; any
+    other backend or device runs the plain version (``mcm_plain``), one
+    read per BFS layer. Both give identical mates, phases and layers.
+    ``row_ptr`` (``row_ptr_from_sorted``) is the kernel's; made here when
+    not given."""
     with obs.span("mcm"):
         obs.count("mcm.layers", 0)
+        obs.count("mcm.phases", 0)
         mate_row = _with_sentinel(mate_row.to(I32), n)
         mate_col = _with_sentinel(mate_col.to(I32), n)
-        go = True
-        while go and obs.flag((mate_row[:n] == n).any(), "mcm_phase"):
-            mate_row, mate_col, go = mcm_phase(row, col, val, n, mate_row,
+        if _mcm_on_kernel(row, n, backend):
+            if row_ptr is None:
+                row_ptr = row_ptr_from_sorted(row, n)
+            mate_row, mate_col, stats = mcm_persistent(
+                row, col, val, row_ptr, mate_row, mate_col, n=n)
+            with obs.d2h("mcm"):
+                phases, layers, _ = stats.tolist()
+            obs.count("mcm.kernel")
+            obs.count("mcm.phases", phases)
+            obs.count("mcm.layers", layers)
+        else:
+            obs.count("mcm.kernel", 0)
+            mate_row, mate_col, *_ = mcm_plain(row, col, val, n, mate_row,
                                                mate_col)
         return state_from_mates(row, col, val, n, mate_row, mate_col)
 
@@ -506,8 +556,10 @@ def _awpm(row, col, val, n: int, max_iter: int = 1000,
           window_steps: int | None = None, degrade_infeasible: bool = False):
     """Full pipeline: greedy maximal -> MCM -> AWAC. Returns (state,
     awac_iters). The single-instance engine behind ``api.solve``."""
+    row_ptr = row_ptr_from_sorted(row, n)
     st = greedy_maximal(row, col, val, n)
-    st = mcm(row, col, val, n, st.mate_row, st.mate_col)
+    st = mcm(row, col, val, n, st.mate_row, st.mate_col, backend=backend,
+             row_ptr=row_ptr)
     return awac(row, col, val, n, st, max_iter=max_iter, min_gain=min_gain,
-                backend=backend, window_steps=window_steps,
+                backend=backend, row_ptr=row_ptr, window_steps=window_steps,
                 degrade_infeasible=degrade_infeasible)

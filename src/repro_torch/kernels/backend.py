@@ -29,8 +29,8 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("awac_sweep.cu", "awac_persistent.cu", "flash_attention.cu",
            "flash_attention_tc.cu", "router_swap.cu", "embedding_bag.cu",
-           "cycle_gain.cu")
-HEADERS = ("awac_common.cuh",)
+           "cycle_gain.cu", "mcm_persistent.cu")
+HEADERS = ("awac_common.cuh", "coop_grid.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_torch_kernels.so"
@@ -65,10 +65,16 @@ SIGNATURES = {
     "embedding_bag": [c_ptr] * 4 + [c_int] * 12 + [c_ptr] * 3,
     # a, a2, u, v, gain, row; M, N; stream
     "cycle_gain": [c_ptr] * 6 + [c_int] * 2 + [c_ptr],
+    # col, val, row_ptr, mate_row, mate_col; n; mate_row, mate_col, stats,
+    # scratch; scratch bytes; stream
+    "mcm_persistent": [c_ptr] * 5 + [c_int] + [c_ptr] * 4 + [c_ll, c_ptr],
+    # n -> bytes of scratch for mcm_persistent
+    "mcm_persistent_scratch_bytes": [c_int],
 }
 
 #: return types other than int (a ``cudaError_t``)
-RESTYPES = {"awac_persistent_scratch_bytes": c_ll}
+RESTYPES = {"awac_persistent_scratch_bytes": c_ll,
+            "mcm_persistent_scratch_bytes": c_ll}
 
 _LIB = None
 #: what the last build did: {"seconds", "library", "ptxas", "cached"}
@@ -189,13 +195,14 @@ def check(err: int, name: str) -> None:
 
 def launch_counts() -> dict[str, int]:
     """Launches of each hand-written kernel since the last reset."""
-    awac_sweep, persistent, flash, swap, bag, tile = _kernel_modules()
+    awac_sweep, persistent, flash, swap, bag, tile, mcm = _kernel_modules()
     return {"awac_sweep": awac_sweep.launches,
             "awac_persistent": persistent.launches,
             "flash_attention": flash.launches,
             "router_swap": swap.launches,
             "embedding_bag": bag.launches,
-            "cycle_gain": tile.launches}
+            "cycle_gain": tile.launches,
+            "mcm_persistent": mcm.launches}
 
 
 def reset_launch_counts() -> None:
@@ -211,4 +218,5 @@ def _kernel_modules():
     return tuple(importlib.import_module(f"repro_torch.kernels.{m}") for m in (
         "cycle_gain.awac_sweep", "cycle_gain.persistent",
         "flash_attention.flash_attention", "router_swap.router_swap",
-        "embedding_bag.embedding_bag", "cycle_gain.cycle_gain"))
+        "embedding_bag.embedding_bag", "cycle_gain.cycle_gain",
+        "mcm.persistent"))

@@ -54,6 +54,7 @@
 #include <cuda_runtime.h>
 
 #include "awac_common.cuh"
+#include "coop_grid.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -71,7 +72,6 @@ constexpr int kShortRow = 20;
 constexpr int kChunk = kThreads * kEdgesPerThread;
 constexpr int kColsPerThread = 4;
 constexpr int kColChunk = kThreads * kColsPerThread;
-constexpr int kMaxDevices = 64;
 
 struct Params {
   const int* row;          // [B, cap]
@@ -331,37 +331,7 @@ __global__ void __launch_bounds__(kThreads, kLoopBlocksPerSm)
   }
 }
 
-// The cooperative grid of each device: blocks per SM from the occupancy
-// query times the SM count, queried at the first launch on the device
-// (0: not queried yet). Two threads that query at once store the same
-// value.
-std::atomic<int> g_grid[kMaxDevices];
-
-int grid_blocks(int* blocks) {
-  int dev = 0;
-  cudaError_t err;
-  if ((err = cudaGetDevice(&dev))) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  int g = g_grid[dev].load(std::memory_order_relaxed);
-  if (g == 0) {
-    int sms = 0, coop = 0, per_sm = 0;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev)))
-      return err;
-    if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
-                                      dev)))
-      return err;
-    if (!coop) return cudaErrorNotSupported;
-    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, awac_loop_kernel, kThreads, 0)))
-      return err;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    g = sms * per_sm;
-    g_grid[dev].store(g, std::memory_order_relaxed);
-  }
-  *blocks = g;
-  return cudaSuccess;
-}
+std::atomic<int> g_grid[coop::kMaxDevices];  // blocks per device
 
 size_t align8(size_t x) { return (x + 7) & ~(size_t)7; }
 
@@ -394,7 +364,7 @@ extern "C" int awac_persistent(
   if (cap >= (1ll << 31) || scratch_bytes < awac_persistent_scratch_bytes(B, n))
     return cudaErrorInvalidValue;
   int blocks = 0;
-  int err = grid_blocks(&blocks);
+  int err = coop::grid_blocks(awac_loop_kernel, kThreads, g_grid, &blocks);
   if (err) return err;
   const size_t bn = (size_t)B * n;
   int4* rec = (int4*)scratch;

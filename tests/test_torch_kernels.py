@@ -168,7 +168,8 @@ def test_solve_goes_through_the_kernels(cuda):
     assert auto.execution.ran_kernel is True
     assert launch_counts() == {"awac_sweep": 0, "awac_persistent": 1,
                                "flash_attention": 0, "router_swap": 0,
-                               "embedding_bag": 0, "cycle_gain": 0}
+                               "embedding_bag": 0, "cycle_gain": 0,
+                               "mcm_persistent": 1}
     sweep = solve(p, SolveOptions(backend="cuda"))
     assert launch_counts()["awac_sweep"] == int(sweep.awac_iters) > 0
     plain = solve(p, SolveOptions(backend="torch"))

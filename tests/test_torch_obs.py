@@ -291,19 +291,45 @@ def test_every_read_of_the_device_is_counted(monkeypatch, name, backend):
         == len(seen)
 
 
+#: the local routes on the card: through the kernels ("auto": K2, and the
+#: MCM kernel on the single cold route) and through the plain versions
+CARD = [(name, backend) for name in LOCAL for backend in ("auto", "torch")]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", LOCAL)
-def test_on_the_card(monkeypatch, name):
-    """Through the kernels ("auto" is K2 on the card): the same answer on
-    and off, and every read counted."""
+@pytest.mark.parametrize("name,backend", CARD)
+def test_on_the_card(monkeypatch, name, backend):
+    """The same answer on and off, and every read counted."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    call = _route(name, device="cuda")
+    call = _route(name, backend, device="cuda")
     off = call()
     seen, trace, on = _reads_of(monkeypatch, call)
     _same(off, on)
     assert trace.count("d2h.reads") == len(seen) > 0, sorted(seen)
     _check_nesting(trace)
+
+
+@pytest.mark.gpu
+def test_mcm_kernel_counts_as_the_plain_route(monkeypatch):
+    """The single cold route through the MCM kernel ("auto") reads the card
+    once for MCM (``d2h.mcm``) and counts the plain route's BFS layers and
+    phases ("torch"), with ``mcm.kernel`` 1 against 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    counts = {}
+    for backend in ("auto", "torch"):
+        seen, trace, _ = _reads_of(monkeypatch,
+                                   _route("single-cold", backend, "cuda"))
+        assert trace.count("d2h.reads") == len(seen) > 0, sorted(seen)
+        counts[backend] = (trace.count("mcm.kernel"),
+                           trace.count("mcm.layers"),
+                           trace.count("mcm.phases"),
+                           len(trace.named("d2h.mcm")))
+    assert counts["auto"][0] == 1 and counts["torch"][0] == 0
+    assert counts["auto"][1:3] == counts["torch"][1:3]
+    assert counts["auto"][1] > 0
+    assert (counts["auto"][3], counts["torch"][3]) == (1, 0)
 
 
 def test_primitives():

@@ -8,9 +8,12 @@ and its batch of 16 at n = 2^16), prints:
 
   - ``solve()`` with backend "auto", host clock ending in a device sync,
     after one warm-up call, three calls;
-  - the greedy / MCM split of the single-instance engine: ``mcm`` from
-    the greedy state phase by phase, its BFS and trace/flip seconds, its
-    phases and BFS layers;
+  - the greedy / MCM split of the single-instance engine, from the greedy
+    state: MCM in its kernel (backend "cuda_persistent", one launch; its
+    phases and BFS layers from the kernel's stats) beside the plain
+    version (backend "torch"), phase by phase, with its BFS and
+    trace/flip seconds, phases and BFS layers; a checkout without the
+    kernel times the plain version alone;
   - one ``solve()`` under ``torch.profiler``: the device's busy share and
     the kernels that take its time, ``scatter_reduce``'s among them;
   - the batch's ``solve()``, three calls after a warm-up.
@@ -18,6 +21,7 @@ and its batch of 16 at n = 2^16), prints:
 Run from the root of a checkout on a machine with the card:
 
     python3 tools/mcm_split.py [--root CHECKOUT] [--out FILE]
+        [--n N --degree D --kind KIND --seed S]
 
 Compare two checkouts within one call (parent, change, change, parent):
 each run is its own process, so each imports its own port.
@@ -25,6 +29,7 @@ each run is its own process, so each imports its own port.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import pathlib
 import subprocess
@@ -52,10 +57,9 @@ def dev_us(e) -> float:
         e, "self_cuda_time_total", 0.0)
 
 
-def mcm_split(single, row, col, val, n):
-    """``single.mcm`` from the greedy state, phase by phase."""
-    st = single.greedy_maximal(row, col, val, n)
-    mr, mc = st.mate_row, st.mate_col
+def mcm_split(single, row, col, val, n, mr, mc):
+    """The plain version of ``single.mcm`` from the greedy state, phase by
+    phase."""
     out = dict(phases=0, layers=0, bfs_s=0.0, flip_s=0.0)
     go = True
     while go and bool((mr[:n] == n).any()):
@@ -69,6 +73,30 @@ def mcm_split(single, row, col, val, n):
         out["layers"] += layers
     out["mcm_s"] = out["bfs_s"] + out["flip_s"]
     return out, mr
+
+
+def mcm_kernel(single, row, col, val, n, mr, mc):
+    """``single.mcm`` in its kernel from the greedy state, three calls
+    after a warm-up, and the kernel's stats; None where the checkout has
+    no MCM kernel."""
+    if "backend" not in inspect.signature(single.mcm).parameters:
+        return None, None
+    from repro_torch.kernels.mcm.persistent import mcm_persistent
+    from repro_torch.sparse.csr import row_ptr_from_sorted
+
+    def call():
+        return single.mcm(row, col, val, n, mr, mc,
+                          backend="cuda_persistent")
+
+    call()
+    times = [wall(call)[1] for _ in range(3)]
+    st = call()
+    rp = row_ptr_from_sorted(row, n)
+    _, _, stats = mcm_persistent(row, col, val, rp, single._with_sentinel(
+        mr, n), single._with_sentinel(mc, n), n=n)
+    phases, layers, free = stats.tolist()
+    return dict(mcm_s=times, phases=phases, layers=layers,
+                free=bool(free)), st.mate_row
 
 
 def busy(fn) -> dict:
@@ -94,6 +122,10 @@ def main(argv=None) -> int:
                     help="checkout whose port is measured")
     ap.add_argument("--out", type=pathlib.Path, default=None,
                     help="also write the measurements to this JSON file")
+    ap.add_argument("--n", type=int, default=SINGLE["n"])
+    ap.add_argument("--degree", type=float, default=SINGLE["avg_degree"])
+    ap.add_argument("--kind", default=SINGLE["kind"])
+    ap.add_argument("--seed", type=int, default=SINGLE["seed"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("mcm_split: no CUDA device is available", file=sys.stderr)
@@ -109,14 +141,23 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()[0]
     backend.library()
     log = dict(root=str(root), card=card)
-    g = graph.generate(SINGLE["n"], avg_degree=SINGLE["avg_degree"],
-                       kind=SINGLE["kind"], seed=SINGLE["seed"])
+    g = graph.generate(args.n, avg_degree=args.degree, kind=args.kind,
+                       seed=args.seed)
     p = MatchingProblem.from_graph(g)
     n = g.n
     ref, _ = wall(lambda: solve(p))
     log["solve_s"] = [wall(lambda: solve(p))[1] for _ in range(3)]
-    split, mr = mcm_split(single, p.row, p.col, p.val, n)
+    st = single.greedy_maximal(p.row, p.col, p.val, n)
+    split, mr = mcm_split(single, p.row, p.col, p.val, n, st.mate_row,
+                          st.mate_col)
     log["mcm"] = split
+    kern, kmr = mcm_kernel(single, p.row, p.col, p.val, n, st.mate_row,
+                           st.mate_col)
+    log["mcm_kernel"] = kern
+    if kern is not None and not torch.equal(kmr, mr):
+        print("mcm_split: the MCM kernel's mates differ from the plain "
+              "version's", file=sys.stderr)
+        return 1
     log["profile"] = busy(lambda: solve(p))
     del p, g
     kinds = graph.SUITE_KINDS
@@ -134,10 +175,16 @@ def main(argv=None) -> int:
     prof = log["profile"]
     print(f"[mcm_split] {root.name or root}: {card}")
     print(f"[mcm_split] n={n}: solve() auto "
-          f"{', '.join(f'{t:.3f}' for t in log['solve_s'])} s; MCM "
+          f"{', '.join(f'{t:.3f}' for t in log['solve_s'])} s; MCM plain "
           f"{split['mcm_s']:.3f} s ({split['phases']} phases, "
           f"{split['layers']} BFS layers; BFS {split['bfs_s']:.3f} s, "
           f"trace/flip {split['flip_s']:.3f} s)")
+    if kern is not None:
+        print(f"[mcm_split] MCM kernel "
+              f"{', '.join(f'{t:.4f}' for t in kern['mcm_s'])} s "
+              f"({kern['phases']} phases, {kern['layers']} BFS layers, a "
+              f"column free: {kern['free']}); mates equal to the plain "
+              f"version's")
     print(f"[mcm_split] one solve() under the profiler: {prof['wall_s']:.3f} "
           f"s wall, device busy {prof['device_busy_s']:.3f} s "
           f"({100 * prof['busy_share']:.1f}%), {prof['launches']} launches; "
