@@ -1,8 +1,9 @@
 """Readings that the limits of ``bench/reference/check.py`` are set from.
 
-For each seed, one process on the card makes the cell's pattern and runs
-a short stretch of its traffic through the program, and holds three sets
-of answers against the float32 reference by the run's own comparison:
+For each seed, one process on the card makes the cell's patterns (every
+lane of a batched configuration) and runs a short stretch of its traffic
+through the program, and holds three sets of answers, every lane of each,
+against the float32 reference by the run's own comparison:
 
 - ``program``: the program's answers (the lower readings);
 - ``control``: the plain reference put in the program's place and
@@ -10,6 +11,9 @@ of answers against the float32 reference by the run's own comparison:
   (the upper readings);
 - ``stale``: every call answered with the program's answer to the first
   set-up call, as a step that hands back its state unchanged would.
+
+Of a batch, each set's line also counts, by kind, the lane-calls that were
+off (``<set>_off_by_kind``).
 
 The benchmark's own runs never run this.
 
@@ -32,7 +36,7 @@ if __name__ == "__main__":
     sys.path.insert(1, str(ROOT / "src"))
 
 from bench import harness  # noqa: E402
-from bench.gen.pattern import make_pattern  # noqa: E402
+from bench.gen.pattern import make_lanes  # noqa: E402
 from bench.gen.traffic import Stream  # noqa: E402
 from bench.reference.awpm import Reference, preflight_issues  # noqa: E402
 from bench.reference.check import Served  # noqa: E402
@@ -42,20 +46,20 @@ from bench.reference.check import Served  # noqa: E402
 CHECKED_CALLS = {False: harness.CHECK_COLD_CALLS, True: 12}
 
 
-def control_answers(pattern, mix, seed: int, window: range,
-                    dtype=torch.bfloat16) -> dict[int, Served]:
-    """The control's answer to each call of ``window``, as the program's
-    would be served: its weight summed in ``dtype``."""
-    ctl = Reference(pattern.row, pattern.col, pattern.n, dtype=dtype)
-    out = {}
-    for k, val, ans in harness.answers(ctl, pattern, mix, seed, set(window),
-                                       window.stop):
-        out[k] = Served(mate_row=ans.mate_row, mate_col=ans.mate_col,
-                        rounds=ans.rounds, perfect=ans.perfect(),
-                        weight=float(ans.u[:-1].sum()),
-                        issues=frozenset(preflight_issues(
-                            pattern.row, pattern.col, val.to(dtype),
-                            pattern.n)))
+def control_answers(lanes, mix, window: range,
+                    dtype=torch.bfloat16) -> dict[int, list[Served]]:
+    """The control's answer to each lane of each call of ``window``, as the
+    program's would be served: its weight summed in ``dtype``."""
+    ctl = [Reference(p.row, p.col, p.n, dtype=dtype) for p in lanes]
+    out = {k: [None] * len(lanes) for k in window}
+    for k, b, val, ans in harness.answers(ctl, lanes, mix, set(window),
+                                          window.stop):
+        p = lanes[b]
+        out[k][b] = Served(mate_row=ans.mate_row, mate_col=ans.mate_col,
+                           rounds=ans.rounds, perfect=ans.perfect(),
+                           weight=float(ans.u[:-1].sum()),
+                           issues=frozenset(preflight_issues(
+                               p.row, p.col, val.to(dtype), p.n)))
     return out
 
 
@@ -66,22 +70,27 @@ def readings(spec: dict, name: str, seed: int, device: torch.device,
     from repro_torch.core import api
 
     _, config, mix = harness.resolve(spec, name, config)
-    pattern = make_pattern(config["n"], config["nnz"], config["pattern"],
-                           seed, device)
+    lanes = make_lanes(config, seed, device)
     window = range(mix.warmup_calls,
                    mix.warmup_calls + CHECKED_CALLS[mix.warm_start])
-    caller = harness.Caller(api, pattern, Stream(mix, pattern, seed), device)
+    caller = harness.Caller(api, lanes, "batch" in config,
+                            Stream(mix, lanes), device)
     served = {k: caller.call() for k in range(window.stop)}
     first = served[0]
     served = {k: served[k] for k in window}
     caller.prev = None
-    out = {"seed": seed, "calls": len(window)}
+    out = {"seed": seed, "calls": len(window), "lanes": len(lanes)}
     for label, answers in (
             ("program", served),
-            ("control", control_answers(pattern, mix, seed, window)),
+            ("control", control_answers(lanes, mix, window)),
             ("stale", {k: first for k in window})):
-        out[label] = harness.check(pattern, mix, seed, answers,
-                                   window).numbers()
+        tally = harness.check(lanes, mix, seed, answers, window)
+        out[label] = tally.numbers()
+        if len(lanes) > 1:  # which kinds' lanes were off, in how many calls
+            off = {}
+            for b, calls in tally.lanes_off.items():
+                off[lanes[b].kind] = off.get(lanes[b].kind, 0) + calls
+            out[label + "_off_by_kind"] = off
     return out
 
 

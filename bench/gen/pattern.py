@@ -1,20 +1,31 @@
-"""The sparsity pattern of a cell's matrix, made on the device from the
-seed: a frozen PyTorch rewrite of ``repro_torch.core.graph.generate``'s
-structure (its draws are not numpy's).
+"""The sparsity patterns of a cell's matrices, made on the device from the
+seed: frozen PyTorch rewrites of ``repro_torch.core.graph.generate``'s
+structure (``src/repro_torch/core/graph.py``; its draws are not numpy's).
 
 A square n x n pattern with exactly ``nnz`` entries: a planted random
 permutation, so that a perfect matching exists, and ``nnz - n`` further
-distinct entries with rows drawn uniformly and columns by ``kind``:
+distinct entries with rows drawn uniformly and columns by ``kind``
+(``KINDS``, the kinds of ``graph.SUITE_KINDS``):
 
-- ``uniform``: columns uniform (``generate``'s "uniform");
-- ``powerlaw``: column j drawn with weight ``(1 + j) ** -0.8``, the
-  skewed column degrees of ``generate``'s "powerlaw".
+- ``uniform``: columns uniform (``graph.py:118-120``);
+- ``powerlaw``, ``circuit``, ``antigreedy``: column j drawn with weight
+  ``(1 + j) ** -0.8``, the skewed column degrees ``generate`` gives these
+  three kinds (``graph.py:112-117``); the kinds differ in their values
+  (``bench/gen/values.py``);
+- ``banded``: column = row + U{-band..band}, clipped to [0, n), with
+  band = max(int(3 * degree), 2) and degree = nnz / n, the FEM-like band
+  of ``graph.py:107-111``.
 
 Duplicates are drawn past and dropped, then the extra entries are cut to
 the count at random, so the pattern holds ``nnz`` distinct entries (where
 ``generate`` keeps however many survive its de-duplication). Entries are
 lex-sorted by (row, col) and padded to a multiple of 8 with (n, n), the
 port's convention.
+
+A configuration without ``batch`` is one pattern, made from the run's seed;
+one with ``batch`` B and ``kinds`` is B lanes (``make_lanes``), lane i of
+kind ``kinds[i % len(kinds)]`` and made from a seed of its own derived from
+(seed, i).
 """
 from __future__ import annotations
 
@@ -22,9 +33,9 @@ import dataclasses
 
 import torch
 
-from bench.gen.seeds import generator
+from bench.gen.seeds import derive, generator
 
-KINDS = ("uniform", "powerlaw")
+KINDS = ("uniform", "circuit", "banded", "powerlaw", "antigreedy")
 PAD_ALIGN = 8
 
 
@@ -35,15 +46,28 @@ class Pattern:
     row: torch.Tensor  # [cap] int32, lex-sorted, padding n
     col: torch.Tensor  # [cap] int32
     planted: torch.Tensor  # [cap] bool: the entry is on the permutation
+    kind: str
+    seed: int  # the pattern's seed, which its values are drawn from too
 
     @property
     def cap(self) -> int:
         return int(self.row.shape[0])
 
 
-def _columns(kind: str, count: int, n: int, g, device) -> torch.Tensor:
+def band_of(n: int, nnz: int) -> int:
+    """``banded``'s half-width at degree nnz / n (``graph.py:108``)."""
+    return max(int(3 * nnz / n), 2)
+
+
+def _columns(kind: str, r: torch.Tensor, n: int, band: int,
+             g) -> torch.Tensor:
+    count, device = r.numel(), r.device
     if kind == "uniform":
         return torch.randint(0, n, (count,), generator=g, device=device)
+    if kind == "banded":
+        off = torch.randint(-band, band + 1, (count,), generator=g,
+                            device=device)
+        return (r + off).clamp(0, n - 1)
     weight = (1.0 + torch.arange(n, dtype=torch.float64, device=device)
               ) ** -0.8
     cdf = torch.cumsum(weight, 0)
@@ -62,6 +86,7 @@ def make_pattern(n: int, nnz: int, kind: str, seed: int,
     if not n <= nnz <= n * n:
         raise ValueError(f"nnz {nnz} must lie in [n, n * n] for n {n}")
     g = generator(device, seed, "pattern")
+    band = band_of(n, nnz)
     perm = torch.randperm(n, generator=g, device=device)
     planted = torch.arange(n, device=device) * n + perm
     planted_sorted = torch.sort(planted).values
@@ -69,7 +94,7 @@ def make_pattern(n: int, nnz: int, kind: str, seed: int,
     draw = want + want // 16 + 1024
     while True:
         r = torch.randint(0, n, (draw,), generator=g, device=device)
-        c = _columns(kind, draw, n, g, device)
+        c = _columns(kind, r, n, band, g)
         extra = torch.unique(r * n + c)
         pos = torch.searchsorted(planted_sorted, extra).clamp(max=n - 1)
         extra = extra[planted_sorted[pos] != extra]
@@ -85,4 +110,21 @@ def make_pattern(n: int, nnz: int, kind: str, seed: int,
     col[:nnz] = (keys % n).to(torch.int32)
     mark = torch.zeros(cap, dtype=torch.bool, device=device)
     mark[:nnz] = order < n
-    return Pattern(n=n, nnz=nnz, row=row, col=col, planted=mark)
+    return Pattern(n=n, nnz=nnz, row=row, col=col, planted=mark, kind=kind,
+                   seed=seed)
+
+
+def make_lanes(config: dict, seed: int, device) -> list[Pattern]:
+    """A configuration's instances: without ``batch``, the one pattern of
+    ``seed`` and the configuration's ``pattern`` kind; with it, ``batch``
+    lanes of ``n`` and ``nnz`` each, lane i of kind ``kinds[i % len(kinds)]``
+    made from the seed derived from (``seed``, i)."""
+    n, nnz = int(config["n"]), int(config["nnz"])
+    if "batch" not in config:
+        return [make_pattern(n, nnz, config["pattern"], seed, device)]
+    b, kinds = int(config["batch"]), list(config["kinds"])
+    if b < 1 or not kinds:
+        raise ValueError(f"a batched configuration needs batch >= 1 and a "
+                         f"kind, got batch {b} and kinds {kinds}")
+    return [make_pattern(n, nnz, kinds[i % len(kinds)],
+                         derive(seed, "lane", i), device) for i in range(b)]

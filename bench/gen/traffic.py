@@ -12,6 +12,9 @@ Keys of a mix:
 - ``warmup_calls``: calls made in set-up, before the window, so that
   every kind of call the mix makes has run once.
 
+Every lane of a configuration (``bench/gen/pattern.py::make_lanes``) follows
+the mix on its own values, drawn from the lane's own seed.
+
 One caller calls in a closed loop: the next call starts when the previous
 one has returned and its result has reached the caller.
 """
@@ -49,24 +52,25 @@ class Mix:
 
 
 class Stream:
-    """The values of calls 0, 1, 2, ... of one run, made in order."""
+    """The values of calls 0, 1, 2, ... of one run, made in order: one
+    [cap] tensor a lane."""
 
-    def __init__(self, mix: Mix, pattern: Pattern, seed: int):
-        self.mix, self.pattern, self.seed = mix, pattern, seed
+    def __init__(self, mix: Mix, lanes: list[Pattern]):
+        self.mix, self.lanes = mix, lanes
         self.call = 0
-        self.prev: torch.Tensor | None = None
+        self.prev: list[torch.Tensor] | None = None
 
-    def next(self) -> torch.Tensor:
-        """The values of the next call."""
+    def next(self) -> list[torch.Tensor]:
+        """The values of the next call, lane by lane."""
         k = self.call
         if self.mix.values == "fresh" or k == 0:
-            val = values.fresh(self.pattern, self.seed, k)
+            vals = [values.fresh(p, p.seed, k) for p in self.lanes]
         else:
-            val = values.perturbed(self.pattern, self.prev, self.mix.jitter,
-                                   self.seed, k)
-        self.prev = val if self.mix.values == "perturbed" else None
+            vals = [values.perturbed(p, prev, self.mix.jitter, p.seed, k)
+                    for p, prev in zip(self.lanes, self.prev)]
+        self.prev = vals if self.mix.values == "perturbed" else None
         self.call += 1
-        return val
+        return vals
 
     def warm(self, call: int) -> bool:
         """Whether call ``call`` warm-starts."""

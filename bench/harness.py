@@ -5,7 +5,9 @@ Everything a cell needs is found by name from ``BENCHMARK.json``: the
 configuration's file, the traffic mix ``bench/traffic/<traffic>.json``,
 and a reader ``bench/metrics/<metric>.py`` for every metric the run
 reports. The system under test is ``repro_torch.core.api.solve``, called
-with ``SolveOptions()`` defaults by one caller in a closed loop.
+with ``SolveOptions()`` defaults by one caller in a closed loop: with one
+[cap] problem a call, or, where the configuration has ``batch``, one
+[B, cap] problem of its lanes (``bench/gen/pattern.py::make_lanes``).
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import traceback
 import torch
 
 from bench import tracing
-from bench.gen.pattern import Pattern, make_pattern
+from bench.gen.pattern import Pattern, make_lanes
 from bench.gen.seeds import derive
 from bench.gen.traffic import Mix, Stream
 from bench.reference.awpm import Reference, preflight_issues
@@ -77,12 +79,12 @@ class Record:
     """What the metric readers read from one run."""
 
     n: int
-    nnz: int
+    nnz: int  # a lane's
     setup_s: float
     window_s: float
     attempted: int
     failed: int
-    rounds: list[int]  # AWAC rounds of each call completed in the window
+    rounds: list[int]  # AWAC rounds of each lane of each completed call
     spans: dict[str, list[float]]  # traced run: host seconds of each span
     trace: tracing.DeviceTrace | None  # traced run on the card
 
@@ -99,13 +101,37 @@ class Record:
         return 1e3 * sum(xs) / self.completed
 
 
+def served_lanes(res, lanes: int) -> list[Served]:
+    """``solve()``'s result as the caller holds it, lane by lane: three
+    reads of the device, whatever the lanes."""
+    rounds = res.awac_iters.reshape(-1).tolist()
+    perfect = res.perfect.reshape(-1).tolist()
+    weight = res.weight.reshape(-1).tolist()
+    mr = res.mate_row.reshape(lanes, -1)
+    mc = res.mate_col.reshape(lanes, -1)
+    issues = [set() for _ in range(lanes)]
+    for i in res.diagnosis.issues if res.diagnosis is not None else ():
+        issues[i.instance or 0].add(i.kind)
+    return [Served(mate_row=mr[b], mate_col=mc[b], rounds=rounds[b],
+                   perfect=perfect[b], weight=weight[b],
+                   issues=frozenset(issues[b])) for b in range(lanes)]
+
+
 class Caller:
     """The closed-loop caller: each call makes its values, builds the
-    problem, solves it (warm-started where the mix says) and holds the
-    result once the device is done."""
+    problem ([cap], or [B, cap] of a batched configuration's lanes), solves
+    it (warm-started where the mix says) and holds the result once the
+    device is done."""
 
-    def __init__(self, api, pattern: Pattern, stream: Stream, device):
-        self.api, self.pattern, self.stream = api, pattern, stream
+    def __init__(self, api, lanes: list[Pattern], batched: bool,
+                 stream: Stream, device):
+        self.api, self.lanes, self.stream = api, lanes, stream
+        self.batched = batched
+        if batched:
+            self.row = torch.stack([p.row for p in lanes])
+            self.col = torch.stack([p.col for p in lanes])
+        else:
+            self.row, self.col = lanes[0].row, lanes[0].col
         self.sync = torch.cuda.synchronize if device.type == "cuda" \
             else (lambda: None)
         self.prev = None
@@ -115,13 +141,13 @@ class Caller:
         return self.spans.span(name) if self.spans else \
             contextlib.nullcontext()
 
-    def call(self) -> Served:
-        p = self.pattern
+    def call(self) -> list[Served]:
         warm = self.stream.warm(self.stream.call)
         with self._span("values"):
-            val = self.stream.next()
-            problem = self.api.MatchingProblem(row=p.row, col=p.col, val=val,
-                                               n=p.n)
+            vals = self.stream.next()
+            val = torch.stack(vals) if self.batched else vals[0]
+            problem = self.api.MatchingProblem(row=self.row, col=self.col,
+                                               val=val, n=self.lanes[0].n)
         with self._span("solve"):
             if warm:
                 res = self.api.solve(problem, warm_start=self.prev)
@@ -129,35 +155,33 @@ class Caller:
                 res = self.api.solve(problem)
             self.sync()
         self.prev = res
-        kinds = frozenset(i.kind for i in res.diagnosis.issues) \
-            if res.diagnosis is not None else frozenset()
-        return Served(mate_row=res.mate_row, mate_col=res.mate_col,
-                      rounds=int(res.awac_iters), perfect=bool(res.perfect),
-                      weight=float(res.weight), issues=kinds)
+        return served_lanes(res, len(self.lanes))
 
 
-def answers(ref: Reference, pattern: Pattern, mix: Mix, seed: int,
+def answers(refs: list[Reference], lanes: list[Pattern], mix: Mix,
             targets: set[int], stop: int):
-    """(call, values, answer) of ``ref`` for each call in ``targets``
-    below ``stop``, the values made again from the seed; a warm mix's
-    chain is followed from call 0 on ``ref``'s own answers."""
-    stream, prev = Stream(mix, pattern, seed), None
+    """(call, lane, values, answer) of ``refs`` (one a lane) for each lane
+    of each call in ``targets`` below ``stop``, the values made again from
+    the seeds; a warm mix's chain is followed from call 0, lane by lane, on
+    the references' own answers."""
+    stream, prev = Stream(mix, lanes), [None] * len(lanes)
     for k in range(stop):
         warm = stream.warm(k)
-        val = stream.next()
+        vals = stream.next()
         if k not in targets and not mix.warm_start:
             continue
-        ans = ref.warm(val, prev.mate_row, prev.mate_col) if warm \
-            else ref.cold(val)
-        if k in targets:
-            yield k, val, ans
-        prev = ans
+        for b, (ref, val) in enumerate(zip(refs, vals)):
+            ans = ref.warm(val, prev[b].mate_row, prev[b].mate_col) if warm \
+                else ref.cold(val)
+            if k in targets:
+                yield k, b, val, ans
+            prev[b] = ans
 
 
 def check_targets(mix: Mix, seed: int, window: range) -> set[int]:
-    """The calls of ``window`` that the check solves again: every call of
-    a warm mix; of a cold mix the first, the last and the rest of
-    ``CHECK_COLD_CALLS`` drawn from the seed."""
+    """The calls of ``window`` that the check solves again, every lane of
+    each: every call of a warm mix; of a cold mix the first, the last and
+    the rest of ``CHECK_COLD_CALLS`` drawn from the seed."""
     if mix.warm_start or len(window) <= CHECK_COLD_CALLS:
         return set(window)
     g = torch.Generator().manual_seed(derive(seed, "check"))
@@ -166,18 +190,18 @@ def check_targets(mix: Mix, seed: int, window: range) -> set[int]:
     return {window[0], window[-1]} | {inner[int(i)] for i in pick}
 
 
-def check(pattern: Pattern, mix: Mix, seed: int, served: dict[int, Served],
-          window: range) -> Tally:
+def check(lanes: list[Pattern], mix: Mix, seed: int,
+          served: dict[int, list[Served]], window: range) -> Tally:
     """Solve the checked calls (``check_targets``) again with the
-    reference, from the seed, and hold each answer the program gave
-    against it."""
+    reference, one a lane, from the seeds, and hold every lane of each
+    answer the program gave against it."""
     targets = check_targets(mix, seed, window)
-    ref = Reference(pattern.row, pattern.col, pattern.n)
+    refs = [Reference(p.row, p.col, p.n) for p in lanes]
     tally = Tally()
-    for k, val, ans in answers(ref, pattern, mix, seed, targets,
-                               window.stop):
-        tally.add(k, served.get(k), ans,
-                  preflight_issues(pattern.row, pattern.col, val, pattern.n))
+    for k, b, val, ans in answers(refs, lanes, mix, targets, window.stop):
+        p = lanes[b]
+        got = served[k][b] if k in served else None
+        tally.add(k, got, ans, preflight_issues(p.row, p.col, val, p.n), b)
     return tally
 
 
@@ -221,21 +245,20 @@ def run_cell(spec: dict, name: str, seed: int, seconds: float, traced: bool,
         backend.library()
         torch.cuda.synchronize()
     marks.append(("port", time.perf_counter() - t_start))
-    pattern = make_pattern(config["n"], config["nnz"], config["pattern"],
-                           seed, device)
-    stream = Stream(mix, pattern, seed)
-    caller = Caller(api, pattern, stream, device)
+    lanes = make_lanes(config, seed, device)
+    stream = Stream(mix, lanes)
+    caller = Caller(api, lanes, "batch" in config, stream, device)
     marks.append(("pattern", time.perf_counter() - t_start))
     for k in range(mix.warmup_calls):
         caller.call()
         marks.append((f"call {k}", time.perf_counter() - t_start))
     setup_s = time.perf_counter() - t_start
-    log(f"set-up {setup_s:.3f} s: n {pattern.n}, nnz {pattern.nnz}, "
-        f"{mix.warmup_calls} warm-up call(s); done at (s) "
+    log(f"set-up {setup_s:.3f} s: {len(lanes)} lane(s) of n {lanes[0].n}, "
+        f"nnz {lanes[0].nnz}, {mix.warmup_calls} warm-up call(s); done at (s) "
         + ", ".join(f"{k} {v:.3f}" for k, v in marks))
 
     spans = tracing.Spans(device)
-    served: dict[int, Served] = {}
+    served: dict[int, list[Served]] = {}
     attempted = failed = 0
     first = stream.call
     with contextlib.ExitStack() as stack:
@@ -279,15 +302,16 @@ def run_cell(spec: dict, name: str, seed: int, seconds: float, traced: bool,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    tally = check(pattern, mix, seed, served, window)
+    tally = check(lanes, mix, seed, served, window)
     log(f"check {time.perf_counter() - t_check:.3f} s: {tally.checked} "
-        f"call(s) against the reference"
+        f"call(s), {tally.lanes} lane(s) against the reference"
         + (f", first off at call {tally.first_off}"
            if tally.first_off is not None else ""))
 
-    record = Record(n=pattern.n, nnz=pattern.nnz, setup_s=setup_s,
+    record = Record(n=lanes[0].n, nnz=lanes[0].nnz, setup_s=setup_s,
                     window_s=window_s, attempted=attempted, failed=failed,
-                    rounds=[served[k].rounds for k in window if k in served],
+                    rounds=[s.rounds for k in window if k in served
+                            for s in served[k]],
                     spans=dict(spans.seconds), trace=dtrace)
     values = {}
     for m in metrics:

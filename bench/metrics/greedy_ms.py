@@ -1,8 +1,11 @@
 """``greedy_ms``: host milliseconds per call in the greedy maximal
-matching, ``repro_torch.core.single.greedy_maximal`` (cold calls)."""
+matching (cold calls): ``repro_torch.core.single.greedy_maximal`` for one
+matrix, ``repro_torch.core.batch.greedy_loop`` for a batch, its proposal
+rounds over every lane in lockstep."""
 
 SPAN = "greedy"
-WRAPS = (("repro_torch.core.single", "greedy_maximal"),)
+WRAPS = (("repro_torch.core.single", "greedy_maximal"),
+         ("repro_torch.core.batch", "greedy_loop"))
 
 
 def read(run):

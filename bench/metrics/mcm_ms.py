@@ -1,9 +1,12 @@
 """``mcm_ms``: host milliseconds per call in the maximum cardinality
-matching, ``repro_torch.core.single.mcm`` (cold calls): its phases of
-layered BFS, each layer one read of the device."""
+matching (cold calls): ``repro_torch.core.single.mcm`` for one matrix
+(on the card one launch of the MCM kernel) and
+``repro_torch.core.batch.mcm_loop`` for a batch, its phases of layered
+BFS over every lane in lockstep, each layer one read of the device."""
 
 SPAN = "mcm"
-WRAPS = (("repro_torch.core.single", "mcm"),)
+WRAPS = (("repro_torch.core.single", "mcm"),
+         ("repro_torch.core.batch", "mcm_loop"))
 
 
 def read(run):

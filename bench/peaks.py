@@ -27,3 +27,17 @@ def bound_s(nbytes: float, ops: float) -> float:
     """The least time the card could take: bytes at the memory's rate or
     operations at the float32 rate, whichever is longer."""
     return max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
+
+
+def mcm_bytes(nnz: int, n: int, phases: int, layers: int,
+              calls: int = 1) -> tuple[float, float]:
+    """Bytes and operations that MCM must move and do over ``calls``
+    calls that ran ``phases`` phases and ``layers`` BFS layers in all,
+    whatever the design: each phase's BFS touches every edge's column and
+    value once (8 bytes an edge); each layer reads and writes a frontier
+    bitmap; each call's matching read and written once (16 bytes a
+    vertex); one comparison an edge a phase. A copy of
+    ``chip_smoke.mcm_bytes``, summed over calls."""
+    words = -(-n // 32)
+    return (8.0 * nnz * phases + 8.0 * words * layers
+            + 16.0 * (n + 1) * calls, float(nnz) * phases)

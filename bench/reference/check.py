@@ -1,17 +1,18 @@
 """The comparison that decides a run's ``correct``.
 
-Each checked call's answer from the program is held against the plain
-reference's answer for the same values (and, on the warm path, the
-reference's own answer to the previous call as its seed). Two numbers are
-compared, each with its limit (see PERF.md for the readings they were set
-from):
+Each checked call's answer from the program is held, lane by lane (one
+lane for a single instance, B for a batch), against the plain reference's
+answer for the same values (and, on the warm path, the reference's own
+answer to the previous call as its seed). Two numbers are compared, each
+with its limit (see PERF.md for the readings they were set from):
 
-- ``calls_off``: checked calls whose mates (``mate_row`` and
-  ``mate_col``), AWAC rounds, perfection or preflight findings differ from
-  the reference's in any entry. The program promises the reference's
+- ``calls_off``: checked calls in which any lane's mates (``mate_row``
+  and ``mate_col``), AWAC rounds, perfection or preflight findings differ
+  from the reference's in any entry. The program promises the reference's
   answer bit for bit, so the limit is 0.
-- ``weight_gap``: the largest relative gap between the weight the program
-  reports and the reference's float64 sum of its own matched entries.
+- ``weight_gap``: the largest relative gap, over the checked lanes, between
+  the weight the program reports and the reference's float64 sum of its
+  own matched entries.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ LIMITS = {"calls_off": 0, "weight_gap": 1e-5}
 
 @dataclasses.dataclass
 class Served:
-    """What one call returned, as the caller holds it."""
+    """What one call returned for one lane, as the caller holds it."""
 
     mate_row: torch.Tensor  # [n + 1]
     mate_col: torch.Tensor  # [n + 1]
@@ -48,22 +49,36 @@ def weight_gap(got: Served, want) -> float:
 
 
 class Tally:
-    """The compared numbers over a run's checked calls."""
+    """The compared numbers over a run's checked calls and their lanes."""
 
     def __init__(self):
-        self.checked = 0
-        self.calls_off = 0
+        self.calls: set[int] = set()
+        self.off: set[int] = set()
+        self.lanes = 0
+        self.lanes_off: dict[int, int] = {}  # lane -> checked calls off
         self.weight_gap = 0.0
-        self.first_off = None
 
-    def add(self, call: int, got: Served | None, want, want_issues) -> None:
-        """Hold call ``call``'s answer (None: it never came) against the
-        reference's."""
-        self.checked += 1
+    @property
+    def checked(self) -> int:
+        return len(self.calls)
+
+    @property
+    def calls_off(self) -> int:
+        return len(self.off)
+
+    @property
+    def first_off(self) -> int | None:
+        return min(self.off) if self.off else None
+
+    def add(self, call: int, got: Served | None, want, want_issues,
+            lane: int = 0) -> None:
+        """Hold lane ``lane`` of call ``call``'s answer (None: it never
+        came) against the reference's."""
+        self.calls.add(call)
+        self.lanes += 1
         if got is None or differs(got, want, want_issues):
-            self.calls_off += 1
-            if self.first_off is None:
-                self.first_off = call
+            self.off.add(call)
+            self.lanes_off[lane] = self.lanes_off.get(lane, 0) + 1
         if got is not None:
             self.weight_gap = max(self.weight_gap, weight_gap(got, want))
 

@@ -10,24 +10,28 @@ import pytest
 import torch
 
 from bench import harness
-from bench.test_bench_reference import CELLS, small_config
+from bench.test_bench_reference import (BATCH_CELL, CELLS, load_spec,
+                                        small_config)
 from repro_torch.core import api, batch, single
 
 CPU = torch.device("cpu")
 SECONDS = 0.3
 
 
+def run_cell(cell: str, seed: int = 5, traced: bool = False):
+    return harness.run_cell(load_spec(), cell, seed, SECONDS, traced,
+                            CPU, time.perf_counter(),
+                            config=small_config(CELLS[cell]))
+
+
 def run(cell: str, seed: int = 5, traced: bool = False):
-    result, _ = harness.run_cell(harness.load_spec(), cell, seed, SECONDS,
-                                 traced, CPU, time.perf_counter(),
-                                 config=small_config(CELLS[cell]))
-    return result
+    return run_cell(cell, seed, traced)[0]
 
 
 def unchanged_state(monkeypatch):
     """Each engine hands back the state of its first call (a set-up call)
     on every later call: the step leaves its state unchanged."""
-    for module, name in ((single, "_awpm"),
+    for module, name in ((single, "_awpm"), (batch, "_awpm_batched"),
                          (batch, "_awpm_batched_from_state")):
         real, held = getattr(module, name), []
 
@@ -53,23 +57,41 @@ def altered_answer(monkeypatch):
     monkeypatch.setattr(api, "_result", result)
 
 
+def half_the_batch(monkeypatch):
+    """The batched engine solves the first half of the lanes only and
+    answers each lane of the second half with a solved lane's answer."""
+    real = batch._awpm_batched
+
+    def engine(row, col, val, n, **kwargs):
+        b = row.shape[0]
+        h = max(b // 2, 1)
+        state, iters = real(row[:h], col[:h], val[:h], n, **kwargs)
+        idx = torch.arange(b, device=row.device) % h
+        return type(state)(*(x[idx] for x in state)), iters[idx]
+
+    monkeypatch.setattr(batch, "_awpm_batched", engine)
+
+
 @pytest.mark.parametrize("cell", list(CELLS))
 @pytest.mark.parametrize("traced", [False, True])
 def test_a_sound_run_is_correct(cell, traced):
-    result = run(cell, traced=traced)
+    result, tally = run_cell(cell, traced=traced)
     assert result["correct"] and result["failed"] == 0
     assert result["attempted"] >= 1
     assert list(result)[-1] == "checks"
+    lanes = small_config(CELLS[cell]).get("batch", 1)
+    assert tally.checked >= 1 and tally.lanes == lanes * tally.checked
+    engine = {"greedy_ms", "mcm_ms"} if cell.endswith("cold") else {
+        "warm_state_ms"}
     want = {"solve_ms", "setup_s"} if not traced else (
-        {"preflight_ms", "awac_ms", "awac_rounds"}
-        | ({"greedy_ms", "mcm_ms"} if cell.endswith("cold")
-           else {"warm_state_ms"}))
+        {"preflight_ms", "awac_ms", "awac_rounds"} | engine)
     assert set(result["metrics"]) == want
     if traced:
         assert set(result["breakdown"]) == {"device_ops", "idle_gaps"}
 
 
-FAULTS = [(c, f) for f in (altered_answer, unchanged_state) for c in CELLS]
+FAULTS = [(c, f) for f in (altered_answer, unchanged_state)
+          for c in CELLS] + [(BATCH_CELL, half_the_batch)]
 
 
 @pytest.mark.parametrize("cell,fault", FAULTS,
@@ -84,7 +106,7 @@ def test_a_broken_path_is_not_correct(cell, fault, monkeypatch):
 
 @pytest.mark.parametrize("cell", ["powerlaw_2m7.cold", "uniform_1m5.cold"])
 def test_calls_that_raise_are_failed(cell, monkeypatch):
-    spec = harness.load_spec()
+    spec = load_spec()
     cfg = small_config(CELLS[cell])
     real = single._awpm
     calls = {"n": 0}

@@ -10,7 +10,7 @@ import torch
 
 from bench import control, harness
 from bench.reference.check import LIMITS
-from bench.test_bench_reference import CELLS, small_config
+from bench.test_bench_reference import CELLS, load_spec, small_config
 
 pytestmark = pytest.mark.gpu
 
@@ -24,20 +24,21 @@ def card():
 
 @pytest.mark.parametrize("cell", list(CELLS))
 def test_a_traced_run_on_the_card(cell, card):
-    spec = harness.load_spec()
+    spec = load_spec()
     result, _ = harness.run_cell(spec, cell, 31, 1.0, True, card,
                                  time.perf_counter(),
                                  config=small_config(CELLS[cell]))
     assert result["correct"], result["checks"]
     want = {m["name"] for m in harness.metrics_of(spec, cell, True)}
     assert set(result["metrics"]) == want
-    assert 0 < result["metrics"]["k2_roofline"]["value"] <= 100
+    for name in {"k2_roofline", "mcm_roofline"} & want:
+        assert 0 < result["metrics"][name]["value"] <= 100, name
     assert 0 < result["device"]["busy_s"] <= result["device"]["window_s"]
 
 
 @pytest.mark.parametrize("cell", list(CELLS))
 def test_the_control_fails_on_the_card(cell, card):
-    row = control.readings(harness.load_spec(), cell, 32, card,
+    row = control.readings(load_spec(), cell, 32, card,
                            config=small_config(CELLS[cell]))
     assert all(v <= LIMITS[k] for k, v in row["program"].items())
     assert any(v > LIMITS[k] for k, v in row["control"].items())

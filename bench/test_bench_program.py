@@ -12,15 +12,15 @@ import time
 import pytest
 import torch
 
-from bench import harness, program, tracing
+from bench import harness, peaks, program, tracing
 from bench.test_bench_faults import run
-from bench.test_bench_reference import CELLS
+from bench.test_bench_reference import CELLS, load_spec
 from repro_torch import obs
 
 NEW = ("preflight_copy_ms", "preflight_scan_ms", "greedy_rounds",
        "mcm_layers", "mcm_layer_ms", "d2h_reads", "sync_wait_ms",
        "first_solve_ms")
-SPEC = harness.load_spec()
+SPEC = load_spec()
 LOADED_BY_TRACED_RUN = program._loaded_by_traced_run
 
 
@@ -130,6 +130,34 @@ def test_each_reader_reads_nothing_where_nothing_opened(name, monkeypatch):
     assert reader.read(record(1)) is None
 
 
+@pytest.mark.parametrize("kernel_calls", [2, 0])
+def test_mcm_roofline_reads_the_kernels_share(kernel_calls):
+    reader = harness.load_reader("mcm_roofline")
+    program.arm()
+    for call in range(3):
+        with obs.span("solve"):
+            with obs.span("mcm"):
+                obs.count("mcm.kernel", int(call < kernel_calls))
+                obs.count("mcm.phases", 10 + call)
+                obs.count("mcm.layers", 100 + call)
+    run_ = record(3)
+    run_.n, run_.nnz = 4096, 32768
+    run_.trace = tracing.DeviceTrace(
+        window_s=1.0, busy_s=0.5, gaps={},
+        rows={"void (anonymous namespace)::mcm_kernel(Params)": (2, 2e-4),
+              "awac_loop_kernel": (3, 1.0)})
+    got = reader.read(run_)
+    if not kernel_calls:  # no call ran the kernel: nothing to share
+        assert got is None
+        return
+    nbytes, ops = peaks.mcm_bytes(32768, 4096, 10 + 11, 100 + 101, 2)
+    assert nbytes == 8 * 32768 * 21 + 8 * 128 * 201 + 16 * 4097 * 2
+    assert got == pytest.approx(100 * nbytes / peaks.HBM_BYTES_PER_S / 2e-4)
+    assert 0 < got < 100
+    run_.trace.rows.pop("void (anonymous namespace)::mcm_kernel(Params)")
+    assert reader.read(run_) is None  # no launch in the trace
+
+
 def test_innermost_span_of_either_kind_wins():
     spans = sorted([
         ("solve", 0, 100), ("repro_torch.solve", 1, 99),
@@ -198,5 +226,6 @@ def test_a_traced_run_reads_the_programs_record(cell, monkeypatch):
     if cell.endswith("cold"):
         assert got["greedy_rounds"] >= 1 and got["mcm_layers"] >= 1
         assert got["d2h_reads"] >= got["greedy_rounds"] + got["mcm_layers"]
+    if "mcm_layer_ms" in want:  # the batched engine's host layers
         assert got["mcm_layers"] * got["mcm_layer_ms"] \
             <= got["mcm_ms"] * (1 + 1e-9)

@@ -1,36 +1,90 @@
 """The benchmark's yardstick on the CPU at small sizes: the generator
-hits its sizes, the plain reference gives the port's answers, and a
-lower precision fails the comparison."""
+hits its sizes for every kind and gives the parent's patterns and values
+where it did before, the plain reference gives the port's answers, every
+lane of a batch is checked, and a lower precision fails the comparison."""
 from __future__ import annotations
+
+import dataclasses
+import hashlib
 
 import pytest
 import torch
 
 from bench import control, harness
 from bench.gen import values
-from bench.gen.pattern import make_pattern
+from bench.gen.pattern import KINDS, band_of, make_lanes, make_pattern
 from bench.gen.traffic import Mix, Stream
 from bench.reference.awpm import Reference, preflight_issues
 from bench.reference.check import LIMITS
 from repro_torch.core import api
 
 CPU = torch.device("cpu")
-SMALL = {"powerlaw": dict(n=1500, nnz=7400),
-         "uniform": dict(n=1200, nnz=21600)}
+SMALL = {"powerlaw": dict(pattern="powerlaw", n=1500, nnz=7400),
+         "uniform": dict(pattern="uniform", n=1200, nnz=21600),
+         "circuit": dict(pattern="circuit", n=1500, nnz=7400),
+         "antigreedy": dict(pattern="antigreedy", n=1500, nnz=7400),
+         "banded": dict(pattern="banded", n=1200, nnz=9600),
+         # one lane of each kind, at a tiny size
+         "suite": dict(batch=5, kinds=list(KINDS), n=256, nnz=2048)}
+#: a batched cold cell for the tests: no cell of ``BENCHMARK.json`` is
+#: batched yet, so ``load_spec`` adds this one, under every metric that
+#: the single-instance cold cells list but the MCM kernel's roofline, and
+#: under ``mcm_layer_ms``, which only the batched engine's layers open
+BATCH_CELL = "suite.cold"
 CELLS = {"powerlaw_2m7.cold": "powerlaw", "uniform_1m5.cold": "uniform",
-         "powerlaw_2m7.warm": "powerlaw", "uniform_1m5.warm": "uniform"}
+         "powerlaw_2m7.warm": "powerlaw", "uniform_1m5.warm": "uniform",
+         BATCH_CELL: "suite"}
+#: digests of the patterns and values (``pattern_digest``) and of the
+#: answers served at the cells' small sizes (``served_digest``), as the
+#: generator and the harness gave them before the suite's kinds and the
+#: batched configurations came in: a single-instance configuration's
+#: inputs and answers must not move
+PARENT_PATTERNS = {
+    ("uniform", 0): ("a5bd468b2ca4c3ac", "1317ebd22a600081"),
+    ("uniform", 2**31 + 99): ("2df6feb9d0c1c58b", "d57f66b9591cabb5"),
+    ("powerlaw", 0): ("bb70903d41b13683", "d1b848285d944775"),
+    ("powerlaw", 2**31 + 99): ("26e2449c3b101739", "dca399998b4b8709"),
+}
+PARENT_SERVED = {"powerlaw_2m7.cold": "5853e948968a3979",
+                 "uniform_1m5.cold": "1a170489b4e6d382",
+                 "powerlaw_2m7.warm": "bc6bf396668e3e9e",
+                 "uniform_1m5.warm": "45dc167b89606e80"}
 
 
-def small_config(kind: str) -> dict:
-    return dict(pattern=kind, **SMALL[kind])
+def small_config(name: str) -> dict:
+    return dict(SMALL[name])
 
 
-@pytest.mark.parametrize("kind", ["powerlaw", "uniform"])
+def load_spec() -> dict:
+    """``BENCHMARK.json`` with the tests' batched cell ``BATCH_CELL``."""
+    spec = harness.load_spec()
+    like = "powerlaw_2m7.cold"
+    spec["workloads"].append(dict(harness.workload(spec, like),
+                                  name=BATCH_CELL))
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if like in m.get("workloads", ()) and m["name"] != "mcm_roofline":
+            m["workloads"].append(BATCH_CELL)
+    spec["per_layer"].append(
+        {"name": "mcm_layer_ms", "unit": "ms", "better": "lower",
+         "source": "program_span", "layer": "MCM", "moves": "solve_ms",
+         "workloads": [BATCH_CELL]})
+    return spec
+
+
+def digest(*tensors) -> str:
+    d = hashlib.sha256()
+    for t in tensors:
+        d.update(t.contiguous().numpy().tobytes())
+    return d.hexdigest()[:16]
+
+
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("seed", [0, 2**31 + 99])
 def test_pattern_hits_n_and_nnz(kind, seed):
     n, nnz = 5000, 5000 * 6 + 7
     p = make_pattern(n, nnz, kind, seed, CPU)
     assert p.n == n and p.nnz == nnz and p.cap % 8 == 0 and p.cap >= nnz
+    assert p.kind == kind and p.seed == seed
     row, col = p.row[:nnz].long(), p.col[:nnz].long()
     keys = row * n + col
     assert bool((keys[1:] > keys[:-1]).all())  # lex-sorted and distinct
@@ -40,18 +94,82 @@ def test_pattern_hits_n_and_nnz(kind, seed):
                        torch.arange(n))
     assert torch.equal(torch.sort(col[p.planted[:nnz]]).values,
                        torch.arange(n))
+    extra = ~p.planted[:nnz]
+    if kind == "banded":  # every entry off the permutation in its band
+        assert band_of(n, nnz) == 18
+        assert int((col - row)[extra].abs().max()) <= 18
+    else:  # the band holds a few of them only
+        assert float(((col - row)[extra].abs() <= 18).float().mean()) < 0.05
     again = make_pattern(n, nnz, kind, seed, CPU)
     assert torch.equal(p.row, again.row) and torch.equal(p.col, again.col)
+    assert torch.equal(p.planted, again.planted)
 
 
 def test_pattern_rejects_a_count_that_cannot_fit():
     with pytest.raises(ValueError):
         make_pattern(10, 101, "uniform", 0, CPU)
     with pytest.raises(ValueError):
-        make_pattern(10, 20, "banded", 0, CPU)
+        make_pattern(10, 20, "striped", 0, CPU)
+    with pytest.raises(ValueError):
+        make_lanes(dict(batch=0, kinds=["uniform"], n=10, nnz=20), 0, CPU)
 
 
-@pytest.mark.parametrize("kind", ["powerlaw", "uniform"])
+@pytest.mark.parametrize("kind,seed", list(PARENT_PATTERNS),
+                         ids=[f"{k}-{s}" for k, s in PARENT_PATTERNS])
+def test_single_patterns_and_values_are_the_parents(kind, seed):
+    p = make_pattern(600, 600 * 6 + 5, kind, seed, CPU)
+    v0, v1 = values.fresh(p, seed, 0), values.fresh(p, seed, 1)
+    w = values.perturbed(p, v0, 0.02, seed, 1)
+    got = (digest(p.row, p.col, p.planted), digest(v0, v1, w))
+    assert got == PARENT_PATTERNS[kind, seed]
+    (lane,) = make_lanes(dict(pattern=kind, n=600, nnz=600 * 6 + 5), seed,
+                         CPU)
+    assert digest(lane.row, lane.col, lane.planted) == got[0]
+
+
+@pytest.mark.parametrize("cell", list(PARENT_SERVED))
+def test_existing_cells_serve_the_parents_answers(cell):
+    _, cfg, mix = harness.resolve(load_spec(), cell,
+                                  small_config(CELLS[cell]))
+    lanes = make_lanes(cfg, 5, CPU)
+    caller = harness.Caller(api, lanes, False, Stream(mix, lanes), CPU)
+    out = []
+    for _ in range(4):
+        (s,) = caller.call()
+        out += [s.mate_row, s.mate_col, torch.tensor([s.rounds,
+                                                      int(s.perfect)]),
+                torch.tensor([s.weight], dtype=torch.float64)]
+    assert digest(*out) == PARENT_SERVED[cell]
+
+
+def test_lanes_follow_the_kinds_and_their_own_seeds():
+    cfg = small_config("suite") | {"batch": 7}
+    lanes = make_lanes(cfg, 2**31 + 3, CPU)
+    assert [p.kind for p in lanes] == [KINDS[i % 5] for i in range(7)]
+    assert len({p.seed for p in lanes}) == 7
+    assert all(p.n == 256 and p.nnz == 2048 for p in lanes)
+    again = make_lanes(cfg, 2**31 + 3, CPU)
+    assert all(torch.equal(a.col, b.col) for a, b in zip(lanes, again))
+    # the kinds that share powerlaw's columns still get patterns of their own
+    assert not torch.equal(lanes[1].col, lanes[3].col)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_raw_values_fall_in_their_kinds_ranges(kind):
+    p = make_pattern(800, 4000, kind, 5, CPU)
+    v = values.raw(p, 5, 0)
+    planted = p.planted[:p.nnz]
+    (plo, phi), (lo, hi) = values.RANGES.get(
+        kind, (values.DEFAULT, values.DEFAULT))
+    assert v.dtype == torch.float64 and v.shape == (p.nnz,)
+    assert bool((v[planted] >= plo).all()) and bool((v[planted] < phi).all())
+    assert bool((v[~planted] >= lo).all()) and bool((v[~planted] < hi).all())
+    # the draws fill their ranges
+    assert float(v[~planted].min()) < lo + 0.05 * (hi - lo)
+    assert float(v[~planted].max()) > hi - 0.05 * (hi - lo)
+
+
+@pytest.mark.parametrize("kind", KINDS)
 def test_values_are_normalised_and_perturbed_positive(kind):
     p = make_pattern(800, 4000, kind, 5, CPU)
     v = values.fresh(p, 5, 0)
@@ -81,7 +199,7 @@ def same(a, b) -> bool:
         and a[2:] == b[2:]
 
 
-@pytest.mark.parametrize("kind", ["powerlaw", "uniform"])
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("seed", [3, 4])
 def test_reference_gives_the_ports_cold_answer(kind, seed):
     cfg = SMALL[kind]
@@ -105,12 +223,12 @@ def test_reference_gives_the_ports_warm_chain(kind):
     p = make_pattern(cfg["n"], cfg["nnz"], kind, 8, CPU)
     mix = Mix(values="perturbed", warm_start=True, warmup_calls=2,
               jitter=0.02)
-    stream = Stream(mix, p, 8)
+    stream = Stream(mix, [p])
     ref = Reference(p.row, p.col, p.n)
     res = ans = None
     for call in range(5):
         warm = stream.warm(call)
-        val = stream.next()
+        (val,) = stream.next()
         problem = api.MatchingProblem(row=p.row, col=p.col, val=val, n=p.n)
         if warm:
             res = api.solve(problem, warm_start=res)
@@ -147,7 +265,7 @@ def test_preflight_issues_finds_what_the_port_screens():
 
 @pytest.mark.parametrize("cell", list(CELLS))
 def test_lower_precision_fails_and_the_program_passes(cell):
-    spec = harness.load_spec()
+    spec = load_spec()
     row = control.readings(spec, cell, 21, CPU,
                            config=small_config(CELLS[cell]))
     assert all(v <= LIMITS[k] for k, v in row["program"].items())
@@ -181,3 +299,24 @@ def test_the_check_takes_the_windows_ends(calls, warm):
     want = calls if warm else min(calls, harness.CHECK_COLD_CALLS)
     assert len(picked) == want
     assert picked == harness.check_targets(mix, 2**31 + 5, window)
+
+
+def test_one_corrupt_lane_puts_its_call_off():
+    _, cfg, mix = harness.resolve(load_spec(), BATCH_CELL,
+                                  small_config("suite"))
+    lanes = make_lanes(cfg, 9, CPU)
+    caller = harness.Caller(api, lanes, True, Stream(mix, lanes), CPU)
+    served = {k: caller.call() for k in range(4)}
+    window = range(1, 4)
+    sound = harness.check(lanes, mix, 9, served, window)
+    assert sound.numbers() == {"calls_off": 0,
+                               "weight_gap": sound.weight_gap}
+    assert sound.passed() and sound.lanes == 3 * len(lanes)
+    bad = served[2][3]
+    mr = bad.mate_row.clone()
+    mr[[0, 1]] = mr[[1, 0]]
+    served[2] = served[2][:3] + [dataclasses.replace(bad, mate_row=mr)] \
+        + served[2][4:]
+    tally = harness.check(lanes, mix, 9, served, window)
+    assert tally.calls_off == 1 and tally.first_off == 2
+    assert not tally.passed() and tally.lanes == 3 * len(lanes)

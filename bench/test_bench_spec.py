@@ -9,6 +9,7 @@ import re
 import pytest
 
 from bench import harness
+from bench.gen.pattern import KINDS
 from bench.gen.traffic import Mix
 
 SPEC = harness.load_spec()
@@ -56,6 +57,9 @@ def test_every_cell_resolves_and_reports(cell):
     _, config, mix = harness.resolve(SPEC, cell["name"])
     assert isinstance(mix, Mix) and cell["chips"] in (1, 4)
     assert config["nnz"] >= config["n"] > 0
+    kinds = config["kinds"] if "batch" in config else [config["pattern"]]
+    assert kinds and set(kinds) <= set(KINDS)
+    assert int(config.get("batch", 1)) >= 1
     e2e = {m["name"] for m in harness.metrics_of(SPEC, cell["name"], False)}
     assert "setup_s" in e2e and len(e2e) >= 2
     layer = harness.metrics_of(SPEC, cell["name"], True)
