@@ -3,7 +3,8 @@
 For each seed, one process on the card makes the cell's patterns (every
 lane of a batched configuration) and runs a short stretch of its traffic
 through the program, and holds three sets of answers, every lane of each,
-against the float32 reference by the run's own comparison:
+against the float32 reference by the run's own check (the calls it picks,
+a warm call judged from the answer that seeded it):
 
 - ``program``: the program's answers (the lower readings);
 - ``control``: the plain reference put in the program's place and
@@ -24,6 +25,7 @@ prints one JSON line per seed, with the card's name.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import pathlib
 import sys
@@ -41,26 +43,44 @@ from bench.gen.traffic import Stream  # noqa: E402
 from bench.reference.awpm import Reference, preflight_issues  # noqa: E402
 from bench.reference.check import Served  # noqa: E402
 
-#: calls after the warm-up that a reading covers: as many as a cold run
-#: checks, and a dozen of a warm run's chain
-CHECKED_CALLS = {False: harness.CHECK_COLD_CALLS, True: 12}
+#: window calls that a reading covers: a cold run's checked calls, and a
+#: dozen warm calls, of which the check takes ``CHECK_COLD_CALLS`` as a
+#: run's does
+WINDOW_CALLS = {False: harness.CHECK_COLD_CALLS, True: 12}
 
 
-def control_answers(lanes, mix, window: range,
-                    dtype=torch.bfloat16) -> dict[int, list[Served]]:
-    """The control's answer to each lane of each call of ``window``, as the
-    program's would be served: its weight summed in ``dtype``."""
+def control_answers(lanes, mix, stop: int, dtype=torch.bfloat16):
+    """(call, answer) of the control for each call below ``stop``, every
+    lane as the program's would be served: the reference in ``dtype``, its
+    weight summed in ``dtype``, each warm call seeded with its own previous
+    answer."""
     ctl = [Reference(p.row, p.col, p.n, dtype=dtype) for p in lanes]
-    out = {k: [None] * len(lanes) for k in window}
-    for k, b, val, ans in harness.answers(ctl, lanes, mix, set(window),
-                                          window.stop):
-        p = lanes[b]
-        out[k][b] = Served(mate_row=ans.mate_row, mate_col=ans.mate_col,
-                           rounds=ans.rounds, perfect=ans.perfect(),
-                           weight=float(ans.u[:-1].sum()),
-                           issues=frozenset(preflight_issues(
-                               p.row, p.col, val.to(dtype), p.n)))
-    return out
+    stream, prev = Stream(mix, lanes), None
+    for k in range(stop):
+        warm = stream.warm(k)
+        out = []
+        for b, (ref, val, p) in enumerate(zip(ctl, stream.next(), lanes)):
+            ans = ref.warm(val, prev[b].mate_row, prev[b].mate_col) if warm \
+                else ref.cold(val)
+            out.append(Served(mate_row=ans.mate_row, mate_col=ans.mate_col,
+                              rounds=ans.rounds, perfect=ans.perfect(),
+                              weight=float(ans.u[:-1].sum()),
+                              issues=frozenset(preflight_issues(
+                                  p.row, p.col, val.to(dtype), p.n))))
+        prev = out
+        yield k, out
+
+
+def hold(seed: int, mix, window: range, answers) -> harness.Held:
+    """The answers a run's check would hold of (call, answer) pairs, the
+    calls before ``window`` being the set-up's."""
+    held = harness.Held(seed, mix.warm_start)
+    for k, answer in answers:
+        if k < window.start:
+            held.warmed(k, answer)
+        else:
+            held.add(k, answer, k == window[-1])
+    return held
 
 
 def readings(spec: dict, name: str, seed: int, device: torch.device,
@@ -72,20 +92,23 @@ def readings(spec: dict, name: str, seed: int, device: torch.device,
     _, config, mix = harness.resolve(spec, name, config)
     lanes = make_lanes(config, seed, device)
     window = range(mix.warmup_calls,
-                   mix.warmup_calls + CHECKED_CALLS[mix.warm_start])
+                   mix.warmup_calls + WINDOW_CALLS[mix.warm_start])
     caller = harness.Caller(api, lanes, "batch" in config,
                             Stream(mix, lanes), device)
-    served = {k: caller.call() for k in range(window.stop)}
-    first = served[0]
-    served = {k: served[k] for k in window}
+    first = caller.call()
+    program = hold(seed, mix, window, itertools.chain(
+        [(0, first)], ((k, caller.call()) for k in range(1, window.stop))))
     caller.prev = None
     out = {"seed": seed, "calls": len(window), "lanes": len(lanes)}
-    for label, answers in (
-            ("program", served),
-            ("control", control_answers(lanes, mix, window)),
-            ("stale", {k: first for k in window})):
-        tally = harness.check(lanes, mix, seed, answers, window)
+    for label, held in (
+            ("program", program),
+            ("control", hold(seed, mix, window,
+                             control_answers(lanes, mix, window.stop))),
+            ("stale", hold(seed, mix, window,
+                           ((k, first) for k in range(window.stop))))):
+        tally = harness.check(lanes, mix, held)
         out[label] = tally.numbers()
+        out[label + "_checked"] = tally.checked
         if len(lanes) > 1:  # which kinds' lanes were off, in how many calls
             off = {}
             for b, calls in tally.lanes_off.items():

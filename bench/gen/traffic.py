@@ -72,6 +72,14 @@ class Stream:
         self.call += 1
         return vals
 
+    def skip(self) -> None:
+        """Pass the next call by: its values are made only where a later
+        call's follow from them (perturbed)."""
+        if self.mix.values == "perturbed":
+            self.next()
+        else:
+            self.call += 1
+
     def warm(self, call: int) -> bool:
         """Whether call ``call`` warm-starts."""
         return self.mix.warm_start and call > 0

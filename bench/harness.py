@@ -16,6 +16,7 @@ import dataclasses
 import importlib.util
 import json
 import pathlib
+import random
 import sys
 import time
 import traceback
@@ -31,10 +32,12 @@ from bench.reference.check import Served, Tally
 
 BENCH = pathlib.Path(__file__).resolve().parent
 ROOT = BENCH.parent
-#: calls of a cold mix that the reference solves again: the window's first
-#: and last, and the rest drawn from the seed (a warm mix's chain is
-#: followed through every call)
+#: calls that the reference solves again, cold or warm mix: the window's
+#: first and last, and the rest drawn from the seed (``Held``)
 CHECK_COLD_CALLS = 8
+#: the most calls a window makes, by whether the run is traced (None: no
+#: cap): the profiler records every operation of every call it sees
+MOST_CALLS = {False: None, True: 128}
 
 
 def log(*parts) -> None:
@@ -154,54 +157,125 @@ class Caller:
             else:
                 res = self.api.solve(problem)
             self.sync()
-        self.prev = res
+        if self.stream.mix.warm_start:  # the next call's seed
+            self.prev = res
         return served_lanes(res, len(self.lanes))
 
 
-def answers(refs: list[Reference], lanes: list[Pattern], mix: Mix,
-            targets: set[int], stop: int):
-    """(call, lane, values, answer) of ``refs`` (one a lane) for each lane
-    of each call in ``targets`` below ``stop``, the values made again from
-    the seeds; a warm mix's chain is followed from call 0, lane by lane, on
-    the references' own answers."""
-    stream, prev = Stream(mix, lanes), [None] * len(lanes)
-    for k in range(stop):
+class Held:
+    """The answers of a window that the check needs, picked and kept while
+    the window runs; every other answer is dropped at once, so that what
+    stays on the card does not grow with the window's calls.
+
+    The checked calls (``targets``) are the window's first and last call
+    and, between them, as many calls as make ``CHECK_COLD_CALLS`` in all,
+    drawn by a reservoir (Algorithm R) from a generator seeded from the
+    run's seed: the same seed and window pick the same calls. A warm call
+    is checked one step from the answer that seeded it, the program's
+    previous one, so a warm mix keeps that answer beside each checked call,
+    and the last answer as the next call's seed; the first window call's
+    seed is the last warm-up answer. A warm mix's chain starts at the
+    set-up's first call, which is cold: that call is checked too, in place
+    of one drawn call. At most ``2 * CHECK_COLD_CALLS`` answers are kept
+    at any time (``most``), ``CHECK_COLD_CALLS`` for a cold mix."""
+
+    def __init__(self, seed: int, warm: bool):
+        self.rng = random.Random(derive(seed, "check"))
+        self.warm = warm
+        self.answers: dict[int, list[Served]] = {}
+        self.seed_of: dict[int, int | None] = {}  # call -> call that seeded it
+        self.start: int | None = None  # a warm chain's cold start
+        self.first: int | None = None
+        self.last: int | None = None
+        self.inner: list[int] = []  # the reservoir
+        self.size = CHECK_COLD_CALLS - 2 - int(warm)
+        self.offered = 0  # inner calls offered to it
+        self.prev: int | None = None  # the last call that was answered
+        self.most = 0
+
+    @property
+    def targets(self) -> list[int]:
+        return sorted({self.start, self.first, self.last, *self.inner}
+                      - {None})
+
+    def warmed(self, call: int, answer: list[Served]) -> None:
+        """A set-up call's answer: the first is a warm chain's start, the
+        last the first window call's seed."""
+        if self.warm and self.start is None:
+            self.start = call
+        self.answers[call] = answer
+        self.prev = call
+        self._drop()
+
+    def add(self, call: int, answer: list[Served] | None, last: bool) -> None:
+        """Window call ``call``'s answer (None: it raised); ``last``: the
+        window ends with it."""
+        if answer is not None:
+            self.answers[call] = answer
+        self.seed_of[call] = self.prev
+        if self.first is None:
+            self.first = call
+        elif last:
+            self.last = call
+        else:
+            self.offered += 1
+            if len(self.inner) < self.size:
+                self.inner.append(call)
+            else:
+                j = self.rng.randrange(self.offered)
+                if j < len(self.inner):
+                    self.inner[j] = call
+        if answer is not None:
+            self.prev = call
+        self._drop()
+
+    def _drop(self) -> None:
+        targets = self.targets
+        self.seed_of = {k: self.seed_of[k] for k in targets
+                        if k in self.seed_of}
+        keep = set(targets)
+        if self.warm:
+            keep |= set(self.seed_of.values())
+            if self.last is None:
+                keep.add(self.prev)
+        for k in list(self.answers):
+            if k not in keep:
+                del self.answers[k]
+        self.most = max(self.most, len(self.answers))
+
+    def nbytes(self) -> int:
+        """Bytes on the device under the kept answers' mates."""
+        seen = {}
+        for answer in self.answers.values():
+            for s in answer:
+                for t in (s.mate_row, s.mate_col):
+                    st = t.untyped_storage()
+                    seen[st.data_ptr()] = st.nbytes()
+        return sum(seen.values())
+
+
+def check(lanes: list[Pattern], mix: Mix, held: Held) -> Tally:
+    """Solve the checked calls (``held.targets``) again with the reference,
+    one a lane, on values made again from the seeds (a warm call from the
+    program's answer that seeded it), and hold every lane of each answer
+    the program gave against it."""
+    targets = set(held.targets)
+    refs = [Reference(p.row, p.col, p.n) for p in lanes]
+    stream = Stream(mix, lanes)
+    tally = Tally()
+    for k in range(max(targets, default=-1) + 1):
+        if k not in targets:
+            stream.skip()
+            continue
         warm = stream.warm(k)
         vals = stream.next()
-        if k not in targets and not mix.warm_start:
-            continue
-        for b, (ref, val) in enumerate(zip(refs, vals)):
-            ans = ref.warm(val, prev[b].mate_row, prev[b].mate_col) if warm \
+        got = held.answers.get(k)
+        seed = held.answers[held.seed_of[k]] if warm else None
+        for b, (ref, val, p) in enumerate(zip(refs, vals, lanes)):
+            ans = ref.warm(val, seed[b].mate_row, seed[b].mate_col) if warm \
                 else ref.cold(val)
-            if k in targets:
-                yield k, b, val, ans
-            prev[b] = ans
-
-
-def check_targets(mix: Mix, seed: int, window: range) -> set[int]:
-    """The calls of ``window`` that the check solves again, every lane of
-    each: every call of a warm mix; of a cold mix the first, the last and
-    the rest of ``CHECK_COLD_CALLS`` drawn from the seed."""
-    if mix.warm_start or len(window) <= CHECK_COLD_CALLS:
-        return set(window)
-    g = torch.Generator().manual_seed(derive(seed, "check"))
-    inner = window[1:-1]
-    pick = torch.randperm(len(inner), generator=g)[:CHECK_COLD_CALLS - 2]
-    return {window[0], window[-1]} | {inner[int(i)] for i in pick}
-
-
-def check(lanes: list[Pattern], mix: Mix, seed: int,
-          served: dict[int, list[Served]], window: range) -> Tally:
-    """Solve the checked calls (``check_targets``) again with the
-    reference, one a lane, from the seeds, and hold every lane of each
-    answer the program gave against it."""
-    targets = check_targets(mix, seed, window)
-    refs = [Reference(p.row, p.col, p.n) for p in lanes]
-    tally = Tally()
-    for k, b, val, ans in answers(refs, lanes, mix, targets, window.stop):
-        p = lanes[b]
-        got = served[k][b] if k in served else None
-        tally.add(k, got, ans, preflight_issues(p.row, p.col, val, p.n), b)
+            tally.add(k, got[b] if got is not None else None, ans,
+                      preflight_issues(p.row, p.col, val, p.n), b)
     return tally
 
 
@@ -249,8 +323,9 @@ def run_cell(spec: dict, name: str, seed: int, seconds: float, traced: bool,
     stream = Stream(mix, lanes)
     caller = Caller(api, lanes, "batch" in config, stream, device)
     marks.append(("pattern", time.perf_counter() - t_start))
+    held = Held(seed, mix.warm_start)
     for k in range(mix.warmup_calls):
-        caller.call()
+        held.warmed(k, caller.call())
         marks.append((f"call {k}", time.perf_counter() - t_start))
     setup_s = time.perf_counter() - t_start
     log(f"set-up {setup_s:.3f} s: {len(lanes)} lane(s) of n {lanes[0].n}, "
@@ -258,9 +333,9 @@ def run_cell(spec: dict, name: str, seed: int, seconds: float, traced: bool,
         + ", ".join(f"{k} {v:.3f}" for k, v in marks))
 
     spans = tracing.Spans(device)
-    served: dict[int, list[Served]] = {}
+    most = MOST_CALLS[traced]
+    rounds: list[int] = []
     attempted = failed = 0
-    first = stream.call
     with contextlib.ExitStack() as stack:
         prof = None
         if traced:
@@ -279,30 +354,37 @@ def run_cell(spec: dict, name: str, seed: int, seconds: float, traced: bool,
         while True:
             k = stream.call
             attempted += 1
+            got = None
             try:
-                served[k] = caller.call()
+                got = caller.call()
             except Exception:  # a call that raises is a failed request
                 failed += 1
                 log(f"call {k} failed:\n{traceback.format_exc()}")
             call_ms.append(1e3 * (time.perf_counter() - t))
             t = time.perf_counter()
-            if t - t0 >= seconds:
+            last = t - t0 >= seconds or attempted == most
+            held.add(k, got, last)
+            rounds += [s.rounds for s in got or ()]
+            if last:
                 break
         window_s = t - t0
     caller.spans = None
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else 0
     dtrace = tracing.read(prof) if prof is not None else None
-    window = range(first, stream.call)
-    log(f"window {window_s:.3f} s: {attempted} calls, {failed} failed; ms "
-        f"a call: {' '.join(f'{x:.0f}' for x in call_ms)}"
+    cap = f"cap {most}" if most else "no cap"
+    log(f"window {window_s:.3f} s: {attempted} calls ({cap}), {failed} "
+        f"failed; ms a call: {' '.join(f'{x:.0f}' for x in call_ms)}"
         + (f"; trace closed and read in {time.perf_counter() - t:.3f} s"
            if traced else ""))
+    log(f"held for the check: at most {held.most} answer(s) at once, at the "
+        f"close {len(held.answers)} ({held.nbytes()} B of mates); peak "
+        f"{peak} B")
 
     caller.prev = None
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    tally = check(lanes, mix, seed, served, window)
+    tally = check(lanes, mix, held)
     log(f"check {time.perf_counter() - t_check:.3f} s: {tally.checked} "
         f"call(s), {tally.lanes} lane(s) against the reference"
         + (f", first off at call {tally.first_off}"
@@ -310,9 +392,7 @@ def run_cell(spec: dict, name: str, seed: int, seconds: float, traced: bool,
 
     record = Record(n=lanes[0].n, nnz=lanes[0].nnz, setup_s=setup_s,
                     window_s=window_s, attempted=attempted, failed=failed,
-                    rounds=[s.rounds for k in window if k in served
-                            for s in served[k]],
-                    spans=dict(spans.seconds), trace=dtrace)
+                    rounds=rounds, spans=dict(spans.seconds), trace=dtrace)
     values = {}
     for m in metrics:
         v = readers[m["name"]].read(record)

@@ -2,9 +2,10 @@
 
 Each checked call's answer from the program is held, lane by lane (one
 lane for a single instance, B for a batch), against the plain reference's
-answer for the same values (and, on the warm path, the reference's own
-answer to the previous call as its seed). Two numbers are compared, each
-with its limit (see PERF.md for the readings they were set from):
+answer for the same values (and, on the warm path, for the same seed: the
+program's own answer to the previous call, which the program was given).
+Two numbers are compared, each with its limit (see PERF.md for the
+readings they were set from):
 
 - ``calls_off``: checked calls in which any lane's mates (``mate_row``
   and ``mate_col``), AWAC rounds, perfection or preflight findings differ

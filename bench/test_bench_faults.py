@@ -10,12 +10,15 @@ import pytest
 import torch
 
 from bench import harness
-from bench.test_bench_reference import (BATCH_CELL, CELLS, load_spec,
-                                        small_config)
+from bench.test_bench_reference import (BATCH_CELL, CELLS, StandIn,
+                                        load_spec, small_config)
 from repro_torch.core import api, batch, single
 
 CPU = torch.device("cpu")
 SECONDS = 0.3
+WARM_CELLS = [c for c in CELLS if c.endswith(".warm")]
+#: the first window call of a warm mix, after its warm-up calls
+WARM_FIRST = harness.resolve(load_spec(), WARM_CELLS[0], {})[2].warmup_calls
 
 
 def run_cell(cell: str, seed: int = 5, traced: bool = False):
@@ -43,18 +46,18 @@ def unchanged_state(monkeypatch):
         monkeypatch.setattr(module, name, engine)
 
 
+def swapped(out):
+    """``out`` with two columns' rows swapped, in every lane."""
+    mr = out.mate_row.clone()
+    mr[..., [0, 1]] = mr[..., [1, 0]]
+    return dataclasses.replace(out, mate_row=mr)
+
+
 def altered_answer(monkeypatch):
     """The answer swaps two columns' rows where it is produced."""
     real = api._result
-
-    def result(state, iters, n, batched):
-        out = real(state, iters, n, batched)
-        mr, mc = out.mate_row.clone(), out.mate_col.clone()
-        i, j = mr[..., 0].clone(), mr[..., 1].clone()
-        mr[..., 0], mr[..., 1] = j, i
-        return dataclasses.replace(out, mate_row=mr, mate_col=mc)
-
-    monkeypatch.setattr(api, "_result", result)
+    monkeypatch.setattr(api, "_result",
+                        lambda *args, **kwargs: swapped(real(*args, **kwargs)))
 
 
 def half_the_batch(monkeypatch):
@@ -70,6 +73,32 @@ def half_the_batch(monkeypatch):
         return type(state)(*(x[idx] for x in state)), iters[idx]
 
     monkeypatch.setattr(batch, "_awpm_batched", engine)
+
+
+def wrong_at_a_checked_step(monkeypatch):
+    """A stand-in program answers the reference's answer, but for the
+    window's first call, a checked one, where two columns swap rows (and
+    the next call is seeded from it)."""
+    program = StandIn(alter=lambda call, out: swapped(out)
+                      if call == WARM_FIRST else out)
+    monkeypatch.setattr(api, "solve", program.solve)
+
+
+def stale_answer(monkeypatch):
+    """A stand-in program answers every call with its first answer."""
+    first = []
+
+    def alter(call, out):
+        first.append(out)
+        return first[0]
+
+    monkeypatch.setattr(api, "solve", StandIn(alter=alter).solve)
+
+
+def bfloat16_answer(monkeypatch):
+    """A stand-in program answers with the reference computed in
+    bfloat16, each warm call seeded with its own previous answer."""
+    monkeypatch.setattr(api, "solve", StandIn(dtype=torch.bfloat16).solve)
 
 
 @pytest.mark.parametrize("cell", list(CELLS))
@@ -91,7 +120,9 @@ def test_a_sound_run_is_correct(cell, traced):
 
 
 FAULTS = [(c, f) for f in (altered_answer, unchanged_state)
-          for c in CELLS] + [(BATCH_CELL, half_the_batch)]
+          for c in CELLS] + [(BATCH_CELL, half_the_batch)] + [
+    (c, f) for f in (wrong_at_a_checked_step, stale_answer, bfloat16_answer)
+    for c in WARM_CELLS]
 
 
 @pytest.mark.parametrize("cell,fault", FAULTS,

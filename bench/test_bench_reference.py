@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import time
 
 import pytest
 import torch
@@ -51,8 +52,81 @@ PARENT_SERVED = {"powerlaw_2m7.cold": "5853e948968a3979",
                  "uniform_1m5.warm": "45dc167b89606e80"}
 
 
+#: the stand-in program's size: small enough for windows of 1,000 calls
+TINY = dict(pattern="powerlaw", n=24, nnz=96)
+
+
 def small_config(name: str) -> dict:
     return dict(SMALL[name])
+
+
+class StandIn:
+    """A test-only program in ``api.solve``'s place that answers at once
+    with the plain reference's answer, in ``dtype`` (bfloat16: the
+    control), or with a faulty one: ``alter(call, answer)`` may change the
+    answer to call ``call`` (counted from the run's first call) where it is
+    produced."""
+
+    def __init__(self, dtype=torch.float32, alter=None):
+        self.dtype, self.alter = dtype, alter
+        self.refs: dict[int, Reference] = {}
+        self.calls = 0
+
+    def solve(self, problem, options=None, *, warm_start=None):
+        key = problem.row.data_ptr()
+        if key not in self.refs:
+            self.refs[key] = Reference(problem.row, problem.col, problem.n,
+                                       dtype=self.dtype)
+        ref = self.refs[key]
+        ans = ref.cold(problem.val) if warm_start is None else ref.warm(
+            problem.val, warm_start.mate_row, warm_start.mate_col)
+        out = api.MatchResult(
+            mate_row=ans.mate_row.int(), mate_col=ans.mate_col.int(),
+            weight=torch.tensor(float(ans.u[:-1].sum())
+                                if self.dtype != torch.float32
+                                else ans.weight(), dtype=torch.float64),
+            awac_iters=torch.tensor(ans.rounds),
+            perfect=torch.tensor(ans.perfect()))
+        if self.alter is not None:
+            out = self.alter(self.calls, out)
+        self.calls += 1
+        return out
+
+
+class Counting(Reference):
+    """The reference, counting the solves the check asks of it."""
+
+    solves = 0
+
+    def cold(self, val):
+        Counting.solves += 1
+        return super().cold(val)
+
+    def warm(self, val, seed_row, seed_col):
+        Counting.solves += 1
+        return super().warm(val, seed_row, seed_col)
+
+
+def run_standin(monkeypatch, cell: str, calls: int, seed: int):
+    """One run of ``cell`` at the size ``TINY`` with a sound stand-in in
+    ``api.solve``'s place, its window pinned to ``calls`` calls; returns
+    the result, the tally, the ``harness.Held`` of the window and the
+    reference's solves."""
+    made, real = [], harness.Held
+
+    def held(*args):
+        made.append(real(*args))
+        return made[-1]
+
+    monkeypatch.setattr(api, "solve", StandIn().solve)
+    monkeypatch.setattr(harness, "MOST_CALLS", {False: calls, True: calls})
+    monkeypatch.setattr(harness, "Held", held)
+    monkeypatch.setattr(harness, "Reference", Counting)
+    monkeypatch.setattr(Counting, "solves", 0)
+    result, tally = harness.run_cell(load_spec(), cell, seed, 3600.0, False,
+                                     CPU, time.perf_counter(),
+                                     config=dict(TINY))
+    return result, tally, made[0], Counting.solves
 
 
 def load_spec() -> dict:
@@ -288,35 +362,67 @@ def test_the_answer_moves_with_the_values(kind):
 
 
 @pytest.mark.parametrize("calls,warm", [(30, False), (8, False), (3, False),
-                                        (30, True)])
-def test_the_check_takes_the_windows_ends(calls, warm):
-    mix = Mix(values="perturbed" if warm else "fresh", warm_start=warm,
-              warmup_calls=2)
-    window = range(2, 2 + calls)
-    picked = harness.check_targets(mix, 2**31 + 5, window)
-    assert picked <= set(window)
-    assert {window[0], window[-1]} <= picked
-    want = calls if warm else min(calls, harness.CHECK_COLD_CALLS)
-    assert len(picked) == want
-    assert picked == harness.check_targets(mix, 2**31 + 5, window)
+                                        (30, True), (1000, False),
+                                        (1000, True)])
+def test_the_check_takes_the_windows_ends(calls, warm, monkeypatch):
+    cell = "powerlaw_2m7.warm" if warm else "powerlaw_2m7.cold"
+    seed = 2**31 + 5
+    result, tally, held, solves = run_standin(monkeypatch, cell, calls, seed)
+    assert result["correct"] and result["attempted"] == calls
+    first = 2 if warm else 1  # after the mix's warm-up calls
+    window = range(first, first + calls)
+    picked = set(held.targets)
+    # a warm chain's cold start, the set-up's first call, is checked too
+    start = {0} if warm else set()
+    assert picked <= set(window) | start
+    assert {window[0], window[-1]} | start <= picked
+    want = min(calls + warm, harness.CHECK_COLD_CALLS)
+    assert len(picked) == want and tally.checked == want
+    # the reference solves the checked calls, one a lane, and no more
+    assert solves == want
+    # what the window kept on the card does not grow with its calls
+    assert held.most <= (2 if warm else 1) * harness.CHECK_COLD_CALLS
+    assert len(held.answers) <= (2 if warm else 1) * want
+    # the same seed and window pick the same calls; another seed, others
+    again, other = harness.Held(seed, warm), harness.Held(seed + 1, warm)
+    for k in range(first):
+        again.warmed(k, [])
+    for k in window:
+        again.add(k, [], k == window[-1])
+        other.add(k, [], k == window[-1])
+    assert again.targets == held.targets
+    if calls > 100:
+        assert other.targets != held.targets
 
 
-def test_one_corrupt_lane_puts_its_call_off():
-    _, cfg, mix = harness.resolve(load_spec(), BATCH_CELL,
-                                  small_config("suite"))
+@pytest.mark.parametrize("cell,calls", [(BATCH_CELL, 3),
+                                        ("powerlaw_2m7.warm", 20)])
+def test_one_corrupt_lane_puts_its_call_off(cell, calls):
+    _, cfg, mix = harness.resolve(load_spec(), cell,
+                                  small_config(CELLS[cell]))
     lanes = make_lanes(cfg, 9, CPU)
-    caller = harness.Caller(api, lanes, True, Stream(mix, lanes), CPU)
-    served = {k: caller.call() for k in range(4)}
-    window = range(1, 4)
-    sound = harness.check(lanes, mix, 9, served, window)
+    caller = harness.Caller(api, lanes, "batch" in cfg, Stream(mix, lanes),
+                            CPU)
+    window = range(mix.warmup_calls, mix.warmup_calls + calls)
+    served = {k: caller.call() for k in range(window.stop)}
+    held = control.hold(9, mix, window, served.items())
+    sound = harness.check(lanes, mix, held)
+    checked = min(calls, harness.CHECK_COLD_CALLS)
     assert sound.numbers() == {"calls_off": 0,
                                "weight_gap": sound.weight_gap}
-    assert sound.passed() and sound.lanes == 3 * len(lanes)
-    bad = served[2][3]
+    assert sound.passed() and sound.lanes == checked * len(lanes)
+    # one lane of a checked call between the window's ends, swapped where
+    # it was produced
+    k = min(t for t in held.targets if window[0] < t < window[-1])
+    b = len(lanes) // 2
+    bad = served[k][b]
     mr = bad.mate_row.clone()
     mr[[0, 1]] = mr[[1, 0]]
-    served[2] = served[2][:3] + [dataclasses.replace(bad, mate_row=mr)] \
-        + served[2][4:]
-    tally = harness.check(lanes, mix, 9, served, window)
-    assert tally.calls_off == 1 and tally.first_off == 2
-    assert not tally.passed() and tally.lanes == 3 * len(lanes)
+    served[k] = served[k][:b] + [dataclasses.replace(bad, mate_row=mr)] \
+        + served[k][b + 1:]
+    tally = harness.check(lanes, mix, control.hold(9, mix, window,
+                                                   served.items()))
+    assert tally.first_off == k and not tally.passed()
+    assert tally.lanes == checked * len(lanes)
+    if not mix.warm_start:  # a warm call seeded by it may be off too
+        assert tally.calls_off == 1
